@@ -1,0 +1,222 @@
+"""Static-shape clip inference engine on one device: counterpart of
+``ocpg_tpu/engine/infer.py`` without the mesh.
+
+Requests are padded to a small set of canvas buckets and a fixed clip
+length and batched ``slots`` at a time into one forward.  uint8 frames are
+normalised on the device, with the canvas padding zeroed again in
+normalised space.  Up to ``pipeline_depth`` groups are in flight: each
+group's outputs are copied back to pinned host memory behind its forward,
+and the host waits for group i-1's copy only after it has dispatched
+group i, so assembling and uploading a group overlaps the device's work.
+
+Usage:
+    engine = ClipInferenceEngine(model, clip_len=36)
+    results = engine.run(requests)     # list[InferRequest] -> list[np (t,h,w)]
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import sys
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from ..models.build import resolve_device
+
+# /64-aligned canvases at the reference inference scale (Resize 360, max
+# 640): landscape (384, 640), square-ish (512, 640), portrait (640, 512)
+DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = ((384, 640), (512, 640), (640, 512))
+
+
+@dataclasses.dataclass
+class InferRequest:
+    # (t, h, w, 3), t <= clip_len: un-normalised uint8 RGB (normalised on the
+    # device) or already-normalised float32 (passed through)
+    frames: np.ndarray
+    text_ids: np.ndarray      # (Lt,) int32
+    text_mask: np.ndarray     # (Lt,) int32
+    # DAVIS/YTVOS branch only: >= 0 forces that decoder query; -1 = argmax
+    query_override: int = -1
+
+
+def pick_bucket(h: int, w: int,
+                buckets: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
+    """Smallest-area bucket that holds (h, w); else a /64-aligned exact canvas."""
+    fitting = [b for b in buckets if b[0] >= h and b[1] >= w]
+    if fitting:
+        return min(fitting, key=lambda b: b[0] * b[1])
+    return (-(-h // 64) * 64, -(-w // 64) * 64)
+
+
+class ClipInferenceEngine:
+    """Batches clip requests on one device with bucketed static shapes."""
+
+    def __init__(self, model, clip_len: int = 36,
+                 buckets: Sequence[Tuple[int, int]] = DEFAULT_BUCKETS,
+                 slots: int = 1,
+                 out_dtype: torch.dtype = torch.float32,
+                 pipeline_depth: int = 2,
+                 want_ref_points: bool = False,
+                 max_exact_shapes: int = 4,
+                 want_query_scores: bool = False,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        model_dev = next(model.parameters()).device
+        if model_dev.type != self.device.type:
+            raise ValueError(f"model is on {model_dev}, engine on {self.device}")
+        self.model = model
+        self.clip_len = clip_len
+        self.buckets = tuple(buckets)
+        self.slots = max(1, slots)
+        # f32 by default, as the JAX engine; float16 halves the readback
+        self.out_dtype = out_dtype
+        self.pipeline_depth = max(1, pipeline_depth)
+        self.want_ref_points = want_ref_points
+        self.want_query_scores = want_query_scores
+        self.last_ref_points: List[Optional[np.ndarray]] = []
+        self.last_query_scores: List[Optional[np.ndarray]] = []
+        self.last_canvas: List[Optional[Tuple[int, int]]] = []
+        # exact mode (buckets=()) makes one canvas per distinct /64-aligned
+        # request size; past max_exact_shapes distinct canvases, new shapes
+        # use DEFAULT_BUCKETS, as in the JAX engine, so outputs match it
+        self.max_exact_shapes = max_exact_shapes
+        self._exact_fallback_warned = False
+        self._canvases: set = set()
+        self.n_batches = 0
+        self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)
+        self._std = torch.tensor(IMAGENET_STD, device=self.device)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _readback(self, t: torch.Tensor) -> torch.Tensor:
+        if self.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return host.copy_(t, non_blocking=True)
+        return t
+
+    def _dispatch(self, requests, bucket, group):
+        """Assemble, upload and enqueue one group's forward and readback."""
+        bh, bw = bucket
+        samples = np.zeros((self.slots, self.clip_len, bh, bw, 3),
+                           requests[group[0]].frames.dtype)
+        mask = np.ones((self.slots, self.clip_len, bh, bw), bool)
+        lt = requests[group[0]].text_ids.shape[-1]
+        ids = np.full((self.slots, lt), 1, np.int32)
+        ids[:, 0] = 0
+        attn = np.zeros((self.slots, lt), np.int32)
+        attn[:, 0] = 1
+        sizes = np.ones((self.slots, 2), np.int32)
+        qov = np.full((self.slots,), -1, np.int32)
+        for j, ridx in enumerate(group):
+            r = requests[ridx]
+            t, h, w = r.frames.shape[:3]
+            samples[j, :t, :h, :w] = r.frames
+            mask[j, :t, :h, :w] = False
+            ids[j] = r.text_ids
+            attn[j] = r.text_mask
+            sizes[j] = (h, w)
+            qov[j] = r.query_override
+        x = self._upload(samples)
+        m = self._upload(mask)
+        if x.dtype == torch.uint8:
+            xf = (x.float() / 255.0 - self._mean) / self._std
+            x = xf.masked_fill(m[..., None], 0.0)
+        out = self.model(x, m, self._upload(ids), self._upload(attn),
+                         self._upload(sizes), query_override=self._upload(qov))
+        ret = {"masks": self._readback(out["pred_masks"].to(self.out_dtype))}
+        if self.want_ref_points:
+            ret["refs"] = self._readback(out["reference_points"])
+        if self.want_query_scores:
+            ret["scores"] = self._readback(out["query_scores"])
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self.n_batches += 1
+        return ret, event
+
+    def run(self, requests: Sequence[InferRequest],
+            progress: Optional[Callable[[int], None]] = None) -> List[np.ndarray]:
+        """Per request, the (t, h, w) best-query mask logits (float32),
+        cropped to the request's frame count and size."""
+        if not requests:
+            return []
+        wire_dtype = requests[0].frames.dtype
+        for i, r in enumerate(requests):
+            if r.frames.dtype != wire_dtype:
+                raise ValueError(
+                    f"request {i} frames dtype {r.frames.dtype} != {wire_dtype}; "
+                    "mix of compact-uint8 and normalized-f32 requests in one run()")
+
+        exact_over_cap = False
+        if not self.buckets:
+            shapes = {pick_bucket(r.frames.shape[1], r.frames.shape[2], ())
+                      for r in requests}
+            if len(shapes | self._canvases) > self.max_exact_shapes:
+                exact_over_cap = True
+                if not self._exact_fallback_warned:
+                    self._exact_fallback_warned = True
+                    print(f"ClipInferenceEngine: >{self.max_exact_shapes} distinct "
+                          "exact canvases observed; new shapes fall back to the "
+                          "serving bucket trio (pass an explicit buckets list to "
+                          "override)", file=sys.stderr)
+
+        order: Dict[Tuple[int, int], List[int]] = {}
+        for i, r in enumerate(requests):
+            t = r.frames.shape[0]
+            if t > self.clip_len:
+                raise ValueError(f"request {i} has {t} frames > clip_len={self.clip_len}")
+            h, w = r.frames.shape[1:3]
+            bucket = pick_bucket(h, w, self.buckets)
+            if exact_over_cap and bucket not in self._canvases:
+                bucket = pick_bucket(h, w, DEFAULT_BUCKETS)
+            order.setdefault(bucket, []).append(i)
+        groups = [(bucket, idxs[base:base + self.slots])
+                  for bucket, idxs in order.items()
+                  for base in range(0, len(idxs), self.slots)]
+
+        results: List[Optional[np.ndarray]] = [None] * len(requests)
+        self.last_ref_points = [None] * len(requests)
+        self.last_query_scores = [None] * len(requests)
+        self.last_canvas = [None] * len(requests)
+
+        def drain(group, ret, event):
+            if event is not None:
+                event.synchronize()
+            masks = ret["masks"].numpy()
+            refs = ret["refs"].numpy() if self.want_ref_points else None
+            scores = ret["scores"].numpy() if self.want_query_scores else None
+            for j, ridx in enumerate(group):
+                t, h, w = requests[ridx].frames.shape[:3]
+                results[ridx] = masks[j, :t, 0, :h, :w].astype(np.float32)
+                if refs is not None:
+                    self.last_ref_points[ridx] = refs[j, :t, 0]
+                if scores is not None:
+                    self.last_query_scores[ridx] = scores[j]
+            if progress is not None:
+                progress(len(group))
+
+        inflight = collections.deque()
+        for bucket, group in groups:
+            self._canvases.add(bucket)
+            for ridx in group:
+                self.last_canvas[ridx] = bucket
+            inflight.append((group, *self._dispatch(requests, bucket, group)))
+            if len(inflight) >= self.pipeline_depth:
+                drain(*inflight.popleft())
+        while inflight:
+            drain(*inflight.popleft())
+        return results  # type: ignore[return-value]
+
+    @property
+    def canvas_count(self) -> int:
+        """Distinct canvases this engine has run (the JAX engine's compile count)."""
+        return len(self._canvases)

@@ -1,0 +1,111 @@
+"""Small shared layers: counterparts of ``ocpg_tpu/models/layers.py``.
+
+Module and attribute names follow the JAX parameter tree (``layers_0``,
+``fc``, ``q_proj`` ...), so ``utils/weights.py`` maps a flax tree onto them
+by name.  Feature maps are NCHW here.
+
+Numerics: the model runs under ``torch.autocast`` when its compute dtype is
+bfloat16.  Where the JAX module pins float32, the port opens a float32
+island with ``float32_island`` and casts its inputs with ``.float()``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def float32_island(x: torch.Tensor):
+    """Context in which autocast is off, for float32 computations."""
+    return torch.autocast(device_type=x.device.type, enabled=False)
+
+
+class MLP(nn.Module):
+    """ReLU MLP with a linear last layer."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, output_dim: int, num_layers: int):
+        super().__init__()
+        self.num_layers = num_layers
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
+        for i in range(num_layers):
+            setattr(self, f"layers_{i}", nn.Linear(dims[i], dims[i + 1]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"layers_{i}")(x)
+            if i < self.num_layers - 1:
+                x = F.relu(x)
+        return x
+
+
+class FeatureResizer(nn.Module):
+    """Linear + LayerNorm(eps=1e-12); dropout is off in eval."""
+
+    def __init__(self, in_dim: int, output_dim: int):
+        super().__init__()
+        self.fc = nn.Linear(in_dim, output_dim)
+        self.layer_norm = nn.LayerNorm(output_dim, eps=1e-12)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer_norm(self.fc(x))
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with frozen statistics and affine terms, held as buffers
+    (the JAX package's ``frozen`` collection); eps 1e-5 before the rsqrt."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.register_buffer("weight", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # NCHW
+        scale = self.weight * torch.rsqrt(self.running_var + 1e-5)
+        shift = self.bias - self.running_mean * scale
+        return (x * scale.to(x.dtype)[:, None, None]
+                + shift.to(x.dtype)[:, None, None])
+
+
+class MultiheadAttention(nn.Module):
+    """Multi-head attention on (B, L, C) with separate q/k/v projections,
+    float32 logits and softmax, and a key-padding mask (True = pad) that
+    sets logits to float32's minimum."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.out_proj = nn.Linear(dim, dim)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, lq, c = query.shape
+        h = self.num_heads
+        dh = c // h
+
+        def split(x):
+            return x.reshape(b, x.shape[1], h, dh).transpose(1, 2)   # (B, H, L, Dh)
+
+        q = split(self.q_proj(query))
+        k = split(self.k_proj(key))
+        v = split(self.v_proj(value))
+        logits = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(dh)
+        if key_padding_mask is not None:
+            logits = logits.masked_fill(key_padding_mask[:, None, None, :],
+                                        torch.finfo(torch.float32).min)
+        attn = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, c)
+        return self.out_proj(out)
+
+
+def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x = x.clamp(0.0, 1.0)
+    return torch.log(x.clamp(min=eps) / (1.0 - x).clamp(min=eps))
