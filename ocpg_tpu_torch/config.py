@@ -51,7 +51,7 @@ class OCPGConfig:
     dynamic_mask_channels: int = 16
     rel_coord: bool = True
 
-    # * Losses / matcher (used by the train slice)
+    # * Losses / matcher
     aux_loss: bool = True
     set_cost_class: float = 2.0
     set_cost_bbox: float = 5.0
@@ -78,7 +78,7 @@ class OCPGConfig:
     max_size: int = 640
     max_skip: int = 3
 
-    # * Optimization (used by the train slice)
+    # * Optimization
     lr: float = 1e-4
     lr_backbone: float = 5e-5
     lr_text_encoder: float = 1e-5

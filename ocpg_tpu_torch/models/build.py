@@ -1,17 +1,49 @@
-"""Model factory: counterpart of ``ocpg_tpu/models/build.py`` for the eval
-model (no matcher, no criterion: those come with the train slice)."""
+"""Model factory: counterpart of ``ocpg_tpu/models/build.py``.
+
+``build_model`` returns the model alone; the train step's pieces come from
+``build_weight_dict``, ``matcher_config`` and ``criterion_config``.
+"""
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn as nn
 
 from ..config import OCPGConfig
+from .criterion import CriterionConfig
 from .deformable_transformer import offset_bias
+from .matcher import matcher_config
 from .ocpg import OCPG
+
+__all__ = ["build_model", "build_weight_dict", "criterion_config", "init_params",
+           "matcher_config", "resolve_device"]
+
+
+def build_weight_dict(cfg: OCPGConfig) -> Dict[str, float]:
+    """Loss name -> coefficient, with the entries of every aux decoder layer."""
+    wd = {"loss_ce": cfg.cls_loss_coef, "loss_bbox": cfg.bbox_loss_coef,
+          "loss_giou": cfg.giou_loss_coef}
+    if cfg.masks:
+        wd.update({"loss_mask": cfg.mask_loss_coef, "loss_proj": cfg.proj_loss_coef,
+                   "loss_lst": cfg.lst_loss_coef, "loss_mask_low": cfg.mask_loss_coef,
+                   "loss_proj_low": cfg.proj_loss_coef, "loss_lst_low": cfg.lst_loss_coef})
+        if cfg.pairwise_loss:
+            wd["loss_pairwise"] = cfg.pairwise_loss_coef
+            wd["loss_pairwise_neighbor"] = cfg.pairwise_loss_coef
+    if cfg.aux_loss:
+        aux = {}
+        for i in range(cfg.dec_layers - 1):
+            aux.update({f"{k}_{i}": v for k, v in wd.items()})
+        wd.update(aux)
+    return wd
+
+
+def criterion_config(cfg: OCPGConfig) -> CriterionConfig:
+    return CriterionConfig(num_classes=cfg.num_classes, focal_alpha=cfg.focal_alpha,
+                           lst_warmup_iters=cfg.lst_warmup_iters, pairwise=cfg.pairwise_loss)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -69,7 +101,7 @@ def init_params(model: OCPG, generator: torch.Generator) -> None:
 
 def build_model(cfg: OCPGConfig, device: Optional[Union[str, torch.device]] = None,
                 generator: Optional[torch.Generator] = None) -> OCPG:
-    """The eval model on ``device`` (default: the GPU), in eval mode, with
+    """The model on ``device`` (default: the GPU), in eval mode, with
     random weights drawn on the CPU from ``generator`` (default: seeded with
     ``cfg.seed``), so every device gets the same weights."""
     dev = resolve_device(device)

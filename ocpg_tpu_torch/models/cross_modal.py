@@ -68,9 +68,9 @@ class LFM(nn.Module):
 class VisionLanguageFusion(nn.Module):
     """Cross-attention vision <- text with multiplicative gating."""
 
-    def __init__(self, dim: int, num_heads: int = 8):
+    def __init__(self, dim: int, num_heads: int = 8, dropout: float = 0.0):
         super().__init__()
-        self.multihead_attn = MultiheadAttention(dim, num_heads)
+        self.multihead_attn = MultiheadAttention(dim, num_heads, dropout)
 
     def forward(self, visual: torch.Tensor, text: torch.Tensor,
                 text_pad_mask: torch.Tensor, text_pos: torch.Tensor) -> torch.Tensor:

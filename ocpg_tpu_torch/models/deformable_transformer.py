@@ -19,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.ms_deform_attn import ms_deform_attn_cm
-from .layers import MLP, MultiheadAttention, float32_island, inverse_sigmoid
+from .layers import MLP, Dropout, MultiheadAttention, float32_island, inverse_sigmoid
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -84,41 +84,44 @@ class MSDeformAttnModule(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points):
+    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, dropout=0.1):
         super().__init__()
         self.self_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.dropout1, self.dropout2, self.dropout3 = (Dropout(dropout) for _ in range(3))
 
     def forward(self, src, pos, reference_points, spatial_shapes, padding_mask):
         src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask)
-        src = self.norm1(src + src2)
-        ffn = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + ffn)
+        src = self.norm1(src + self.dropout1(src2))
+        ffn = self.linear2(self.dropout2(F.relu(self.linear1(src))))
+        return self.norm2(src + self.dropout3(ffn))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points):
+    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, dropout=0.1):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, n_heads)
+        self.self_attn = MultiheadAttention(d_model, n_heads, dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.dropout1, self.dropout2, self.dropout3, self.dropout4 = (
+            Dropout(dropout) for _ in range(4))
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
                 src_padding_mask):
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt = self.norm2(tgt + self.dropout1(self.self_attn(q, q, tgt)))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes,
                                src_padding_mask)
-        tgt = self.norm1(tgt + tgt2)
-        ffn = self.linear2(F.relu(self.linear1(tgt)))
-        return self.norm3(tgt + ffn)
+        tgt = self.norm1(tgt + self.dropout2(tgt2))
+        ffn = self.linear2(self.dropout3(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + self.dropout4(ffn))
 
 
 def encoder_reference_points(spatial_shapes: Shapes,
@@ -148,7 +151,7 @@ def get_valid_ratio(mask: torch.Tensor) -> torch.Tensor:
 class DeformableTransformer(nn.Module):
     def __init__(self, d_model: int = 256, nhead: int = 8, num_encoder_layers: int = 4,
                  num_decoder_layers: int = 4, dim_feedforward: int = 2048,
-                 num_feature_levels: int = 4, dec_n_points: int = 4,
+                 dropout: float = 0.1, num_feature_levels: int = 4, dec_n_points: int = 4,
                  enc_n_points: int = 4, with_box_refine: bool = True):
         super().__init__()
         self.num_encoder_layers = num_encoder_layers
@@ -158,11 +161,11 @@ class DeformableTransformer(nn.Module):
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, d_model))
         for i in range(num_encoder_layers):
             setattr(self, f"encoder_layer_{i}", EncoderLayer(
-                d_model, dim_feedforward, num_feature_levels, nhead, enc_n_points))
+                d_model, dim_feedforward, num_feature_levels, nhead, enc_n_points, dropout))
         self.reference_points = nn.Linear(d_model, 2)
         for i in range(num_decoder_layers):
             setattr(self, f"decoder_layer_{i}", DecoderLayer(
-                d_model, dim_feedforward, num_feature_levels, nhead, dec_n_points))
+                d_model, dim_feedforward, num_feature_levels, nhead, dec_n_points, dropout))
             if with_box_refine:
                 setattr(self, f"bbox_embed_{i}", MLP(d_model, d_model, 4, 3))
 

@@ -7,6 +7,12 @@ by name.  Feature maps are NCHW here.
 Numerics: the model runs under ``torch.autocast`` when its compute dtype is
 bfloat16.  Where the JAX module pins float32, the port opens a float32
 island with ``float32_island`` and casts its inputs with ``.float()``.
+
+Dropout (``Dropout``) is active when the module is in training mode and
+draws its masks from the ``torch.Generator`` that the train step hands to
+the model (``set_dropout_generator``); in eval mode it is the identity, as
+JAX's ``deterministic=True``.  JAX's dropout bits cannot be reproduced, so
+the parity tests run with dropout off.
 """
 
 from __future__ import annotations
@@ -22,6 +28,32 @@ import torch.nn.functional as F
 def float32_island(x: torch.Tensor):
     """Context in which autocast is off, for float32 computations."""
     return torch.autocast(device_type=x.device.type, enabled=False)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout at rate ``p``: kept elements are scaled by
+    ``1 / (1 - p)``.  ``generator`` (a ``torch.Generator`` on the input's
+    device) is set by the train step; without one it draws from PyTorch's
+    default generator."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Make every ``Dropout`` under ``module`` draw from ``generator``."""
+    for mod in module.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
 
 
 class MLP(nn.Module):
@@ -43,15 +75,16 @@ class MLP(nn.Module):
 
 
 class FeatureResizer(nn.Module):
-    """Linear + LayerNorm(eps=1e-12); dropout is off in eval."""
+    """Linear + LayerNorm(eps=1e-12) + dropout."""
 
-    def __init__(self, in_dim: int, output_dim: int):
+    def __init__(self, in_dim: int, output_dim: int, dropout: float = 0.1):
         super().__init__()
         self.fc = nn.Linear(in_dim, output_dim)
         self.layer_norm = nn.LayerNorm(output_dim, eps=1e-12)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer_norm(self.fc(x))
+        return self.dropout(self.layer_norm(self.fc(x)))
 
 
 class FrozenBatchNorm(nn.Module):
@@ -74,12 +107,13 @@ class FrozenBatchNorm(nn.Module):
 
 class MultiheadAttention(nn.Module):
     """Multi-head attention on (B, L, C) with separate q/k/v projections,
-    float32 logits and softmax, and a key-padding mask (True = pad) that
-    sets logits to float32's minimum."""
+    float32 logits and softmax, a key-padding mask (True = pad) that sets
+    logits to float32's minimum, and dropout on the attention probabilities."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = Dropout(dropout)
         self.q_proj = nn.Linear(dim, dim)
         self.k_proj = nn.Linear(dim, dim)
         self.v_proj = nn.Linear(dim, dim)
@@ -101,7 +135,7 @@ class MultiheadAttention(nn.Module):
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(torch.float32).min)
-        attn = torch.softmax(logits, dim=-1).to(v.dtype)
+        attn = self.dropout(torch.softmax(logits, dim=-1).to(v.dtype))
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, c)
         return self.out_proj(out)
 

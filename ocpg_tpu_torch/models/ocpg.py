@@ -1,20 +1,28 @@
-"""OCPG top-level model, eval forward: counterpart of ``ocpg_tpu/models/ocpg.py``.
+"""OCPG top-level model: counterpart of ``ocpg_tpu/models/ocpg.py``.
 
 backbone -> text encoder -> per level {input_proj -> GroupNorm -> LFM ->
 VL fusion -> LFM} -> deformable transformer -> class / box heads ->
-dynamic-conv mask head -> MSO -> nearest x4 upsample, then one of the two
-eval branches:
+dynamic-conv mask head -> MSO -> nearest x4 upsample, then one of three
+branches:
 
-* DAVIS / YTVOS: the best query by its valid-frame mean score (or the one
-  ``query_override`` forces), refined alone;
-* A2D / JHMDB / RefCOCO: every query refined, on the one annotated frame
-  per clip that ``valid_indices`` picks after the backbone.
+* train (``train=True``, with ``targets``): the mask head for every
+  decoder layer, the matcher per layer (no gradient), the level-set
+  features, and the matched query of each layer refined; it returns the
+  dict ``models/criterion.py::compute_criterion`` reads;
+* DAVIS / YTVOS eval: the best query by its valid-frame mean score (or the
+  one ``query_override`` forces), refined alone;
+* A2D / JHMDB / RefCOCO eval: every query refined.
+
+With ``valid_indices`` (A2D / JHMDB) only the one annotated frame per clip
+goes on after the backbone.  The eval branches run under ``no_grad``.
+Dropout is active in training mode (``model.train()``); ``model.eval()``
+with ``train=True`` is the JAX model's ``deterministic=True``.
 
 Inputs keep the JAX layouts: ``samples (B, T, H, W, 3)`` normalised frames
 and ``samples_mask (B, T, H, W)`` (True = padding).  Inside, feature maps
 are NCHW.  With ``compute_dtype="bfloat16"`` the forward runs under
-``torch.autocast``; the heads, the sampling math and LFM stay float32.
-The train forward belongs to the train slice and is not ported yet.
+``torch.autocast``; the heads, the sampling math, LFM and the level-set
+features stay float32.
 """
 
 from __future__ import annotations
@@ -25,13 +33,14 @@ import torch
 import torch.nn as nn
 
 from ..config import OCPGConfig
-from ..ops.image import bicubic_resize, nearest_resize
+from ..ops.image import bicubic_resize, bilinear_resize, nearest_resize, pixel_shuffle
 from .backbone_resnet import build_resnet
 from .cross_modal import LFM, VisionLanguageFusion
 from .deformable_transformer import DeformableTransformer
 from .layers import MLP, FeatureResizer, float32_island, inverse_sigmoid
 from .mask_head import (MSO, apply_dynamic_conv_shared, compute_locations,
                         dynamic_params_layout)
+from .matcher import match, matcher_config
 from .position_encoding import position_embedding_sine_1d, position_embedding_sine_2d
 from .text_encoder import RobertaConfig, RobertaEncoder
 
@@ -77,7 +86,7 @@ class OCPG(nn.Module):
         self.transformer = DeformableTransformer(
             d_model=hidden, nhead=cfg.nheads, num_encoder_layers=cfg.enc_layers,
             num_decoder_layers=cfg.dec_layers, dim_feedforward=cfg.dim_feedforward,
-            num_feature_levels=cfg.num_feature_levels, dec_n_points=cfg.dec_n_points,
+            dropout=cfg.dropout, num_feature_levels=cfg.num_feature_levels, dec_n_points=cfg.dec_n_points,
             enc_n_points=cfg.enc_n_points, with_box_refine=cfg.with_box_refine)
         for lvl in range(cfg.dec_layers):
             setattr(self, f"class_embed_{lvl}", nn.Linear(hidden, cfg.num_classes))
@@ -88,28 +97,32 @@ class OCPG(nn.Module):
         num_params = sum(self.weight_nums) + sum(self.bias_nums)
         self.controller = MLP(hidden, hidden, num_params, 3)
         self.mask_refine = MSO(cfg.dynamic_mask_channels, (bb_ch[0], bb_ch[1]))
+        # train-only: the level-set features (a JAX tree from an eval init lacks them)
+        self.ls_feat_viz = nn.Conv2d(hidden, 8, 3, padding=1)
+        self.ls_text_proj = nn.Linear(hidden, 8)
+        self.matcher_cfg = matcher_config(cfg)
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.cfg.compute_dtype]
 
-    @torch.no_grad()
     def forward(self, samples: torch.Tensor, samples_mask: torch.Tensor,
                 text_ids: torch.Tensor, text_attn_mask: torch.Tensor,
                 sizes: torch.Tensor, valid_indices: Optional[torch.Tensor] = None,
-                *, query_override: Optional[torch.Tensor] = None,
+                *, targets: Optional[Dict[str, torch.Tensor]] = None,
+                query_override: Optional[torch.Tensor] = None,
                 train: bool = False) -> Dict[str, torch.Tensor]:
-        if train:
-            raise NotImplementedError(
-                "the train forward (matcher, criterion, level-set features) "
-                "comes with the train slice of the port")
+        if train and targets is None:
+            raise ValueError("the train forward needs targets")
         with torch.autocast(device_type=samples.device.type, dtype=torch.bfloat16,
-                            enabled=self.compute_dtype == torch.bfloat16):
-            return self._eval_forward(samples, samples_mask, text_ids, text_attn_mask,
-                                      sizes, valid_indices, query_override)
+                            enabled=self.compute_dtype == torch.bfloat16), \
+                torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            return self._forward(samples, samples_mask, text_ids, text_attn_mask,
+                                 sizes, valid_indices, query_override,
+                                 targets if train else None)
 
-    def _eval_forward(self, samples, samples_mask, text_ids, text_attn_mask, sizes,
-                      valid_indices, query_override):
+    def _forward(self, samples, samples_mask, text_ids, text_attn_mask, sizes,
+                 valid_indices, query_override, targets):
         cfg = self.cfg
         b, t_in, H, W, _ = samples.shape
         hidden = cfg.hidden_dim
@@ -123,6 +136,7 @@ class OCPG(nn.Module):
         if valid_indices is not None:        # A2D / JHMDB: one annotated frame
             sel = torch.arange(b, device=dev) * t_in + valid_indices.long()
             feats = [f[sel] for f in feats]
+            frames = frames[sel]
             frames_mask = frames_mask[sel]
             t = 1
         else:
@@ -136,8 +150,10 @@ class OCPG(nn.Module):
         visual_pos = [position_embedding_sine_2d(m, num_pos_feats=hidden // 2)
                       for m in feat_masks]
 
-        # ---------------- text encoder ----------------
-        text_feat, text_pooled = self.text_encoder(text_ids, text_attn_mask)
+        # ---------------- text encoder (no gradient when frozen) ------------
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not cfg.freeze_text_encoder):
+            text_feat, text_pooled = self.text_encoder(text_ids, text_attn_mask)
         text_word = self.text_proj(text_feat)                     # (B, Lt, C)
         text_sentence = self.sentence_proj(text_pooled)           # (B, C)
         text_pad_mask = text_attn_mask == 0
@@ -199,28 +215,38 @@ class OCPG(nn.Module):
             "pred_boxes": outputs_coord[-1],
         }
 
-        # ---------------- segmentation: the last decoder layer only ----------
+        # ---------------- segmentation ----------------
         h8, w8 = memory[0].shape[-2:]
         # bicubic in the compute dtype, float32 from the sum onward
         dtype = self.compute_dtype
         memory_fusion = sum(bicubic_resize(x.to(dtype), (h8, w8)).float() for x in memory)
         mask_ch = cfg.dynamic_mask_channels
+        # eval reads the last layer's patches only; train every layer's
+        head_lvls = range(ldec) if targets is not None else [ldec - 1]
+        patches = []                                           # (B, T, Q, h8, w8, 16)
         with float32_island(hs):
-            params = self.controller(hs[-1].float()).reshape(bt, nq, -1)
             scale_wh = torch.stack([sizes[:, 1], sizes[:, 0]], -1).float()    # (B, 2) xy
-            refs = inter_references[-1][..., :2].reshape(b, t, nq, 2)
-            refs = refs * scale_wh[:, None, None, :]
-            if cfg.rel_coord:
-                locations = compute_locations(h8, w8, stride=8, device=dev)
-                rel = refs[:, :, :, None, None, :] - locations[None, None, None]
-                rel_g = rel.reshape(bt, nq, h8, w8, 2)
-            else:
-                rel_g = torch.zeros((bt, nq, h8, w8, 2), device=dev)
-            patch = apply_dynamic_conv_shared(
-                memory_fusion.permute(0, 2, 3, 1), rel_g, params, mask_ch,
-                self.weight_nums, self.bias_nums)         # (BT, Q, h8, w8, 16)
-        patch = patch.reshape(b, t, nq, h8, w8, mask_ch)
+            locations = compute_locations(h8, w8, stride=8, device=dev)
+            for lvl in head_lvls:
+                params = self.controller(hs[lvl].float()).reshape(bt, nq, -1)
+                refs = inter_references[lvl][..., :2].reshape(b, t, nq, 2)
+                refs = refs * scale_wh[:, None, None, :]
+                if cfg.rel_coord:
+                    rel = refs[:, :, :, None, None, :] - locations[None, None, None]
+                    rel_g = rel.reshape(bt, nq, h8, w8, 2)
+                else:
+                    rel_g = torch.zeros((bt, nq, h8, w8, 2), device=dev)
+                patch = apply_dynamic_conv_shared(
+                    memory_fusion.permute(0, 2, 3, 1), rel_g, params, mask_ch,
+                    self.weight_nums, self.bias_nums)         # (BT, Q, h8, w8, 16)
+                patches.append(patch.reshape(b, t, nq, h8, w8, mask_ch))
+        patch = patches[-1]
         feat_4x, feat_8x = feats[0], feats[1]
+
+        if targets is not None:
+            return self._train_outputs(out, targets, outputs_class, outputs_coord, patches,
+                                       memory_fusion, text_sentence, frames, feat_4x,
+                                       feat_8x, (b, t, H, W))
 
         if cfg.dataset_file not in ("a2d", "jhmdb") and "refcoco" not in cfg.dataset_file:
             # DAVIS / YTVOS: the best query by its mean score over the valid
@@ -252,4 +278,58 @@ class OCPG(nn.Module):
         refined = self.mask_refine(patch_q.to(dtype), feat_4x, feat_8x, queries=nq)
         full = nearest_resize(refined.float(), (H, W))[:, 0]
         out["pred_masks"] = full.reshape(b, t, nq, H, W)
+        return out
+
+    def _train_outputs(self, out, targets, outputs_class, outputs_coord, patches,
+                       memory_fusion, text_sentence, frames, feat_4x, feat_8x, dims):
+        """The train branch: matcher per layer, level-set features, the
+        matched query of every layer refined."""
+        cfg = self.cfg
+        b, t, H, W = dims
+        bt = b * t
+        nq, mask_ch = cfg.num_queries, cfg.dynamic_mask_channels
+        _, _, _, h8, w8, _ = patches[0].shape
+        h2, w2 = h8 * 4, w8 * 4
+        ldec = len(patches)
+        # pixel-shuffled patch logits at 1/2 resolution: the matcher's input
+        formatcher = [pixel_shuffle(p.reshape(bt * nq, h8, w8, mask_ch).permute(0, 3, 1, 2),
+                                    4)[:, 0].reshape(b, t, nq, h2, w2) for p in patches]
+        matched = torch.stack([
+            match(self.matcher_cfg, outputs_class[lvl], outputs_coord[lvl], formatcher[lvl],
+                  targets["labels"], targets["boxes"], targets["masks"], targets["valid"])
+            for lvl in range(ldec)])                                       # (L, B)
+
+        # level-set targets: [frame, 8 learned channels, text similarity]
+        with float32_island(memory_fusion):
+            ls_viz = bilinear_resize(self.ls_feat_viz(memory_fusion), (h2, w2),
+                                     align_corners=True)                  # (BT, 8, h2, w2)
+            txt8 = self.ls_text_proj(text_sentence.float())               # (B, 8)
+            txt8 = txt8.repeat_interleave(t, 0)[:, :, None, None]         # (BT, 8, 1, 1)
+            dot = (ls_viz * txt8).sum(1)
+            cos = (ls_viz / torch.linalg.vector_norm(ls_viz, dim=1, keepdim=True).clamp(min=1e-12)
+                   * (txt8 / torch.linalg.vector_norm(txt8, dim=1, keepdim=True).clamp(min=1e-12))
+                   ).sum(1)
+            sim_cross = dot / (cos + 1e-5)                                 # (BT, h2, w2)
+            # the frames as the backbone saw them (rounded to the compute dtype)
+            img_ori = bilinear_resize(frames.to(self.compute_dtype).float(), (h2, w2),
+                                      align_corners=True)                 # (BT, 3, h2, w2)
+            ls_features = torch.cat([img_ori, ls_viz, sim_cross[:, None]], 1)
+        out["ls_features"] = ls_features.permute(0, 2, 3, 1).reshape(b, t, h2, w2, 12)
+        out["frames"] = img_ori.permute(0, 2, 3, 1).reshape(b, t, h2, w2, 3)
+
+        masks, lows = [], []
+        for lvl in range(ldec):
+            sel = matched[lvl]
+            psel = _gather_query(patches[lvl], sel)[:, :, 0]              # (B, T, h8, w8, 16)
+            psel = psel.reshape(bt, h8, w8, mask_ch).permute(0, 3, 1, 2)
+            refined = self.mask_refine(psel.to(self.compute_dtype), feat_4x, feat_8x)
+            masks.append(nearest_resize(refined.float(), (H, W))[:, 0].reshape(b, t, H, W))
+            lows.append(_gather_query(formatcher[lvl], sel)[:, :, 0])      # (B, T, h2, w2)
+        out["pred_masks"] = masks[-1]
+        out["pred_masks_low"] = lows[-1]
+        out["matched"] = matched
+        out["outputs_class"] = outputs_class                               # (L, B, T, Q, K)
+        out["outputs_coord"] = outputs_coord
+        out["pred_masks_layers"] = torch.stack(masks)                      # (L, B, T, H, W)
+        out["pred_masks_low_layers"] = torch.stack(lows)
         return out

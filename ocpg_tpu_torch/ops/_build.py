@@ -3,8 +3,8 @@
 Each source under ``ocpg_tpu_torch/ops/csrc`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, in
 ``ocpg_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``.  A library's file name carries a hash of its source and flags, so
-an edited source builds anew.  Nothing is built when this module is imported:
+``ctypes``.  A library's file name carries a hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source builds anew.  Nothing is built when this module is imported:
 the first launch builds its kernel, and ``build_all()`` builds every source
 at once with one ``nvcc`` process per source, all started together.
 """
@@ -23,7 +23,7 @@ from typing import Dict, Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "_build")
-SOURCES = ("ms_deform_attn_fwd.cu",)
+SOURCES = ("ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,8 +45,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}_{digest[:16]}.so")
 
 

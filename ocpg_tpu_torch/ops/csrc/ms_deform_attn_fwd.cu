@@ -35,22 +35,9 @@
 // with ctypes (ocpg_tpu_torch/ops/_build.py); the wrapper is
 // ocpg_tpu_torch/ops/ms_deform_attn.py::ms_deform_attn_cm.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
-#define MSDA_MAX_LEVELS 8
-
-struct Levels {
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int start[MSDA_MAX_LEVELS];
-};
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+#include "msda_common.cuh"
 
 template <typename scalar_t>
 __global__ void msda_cm_fwd_kernel(const scalar_t* __restrict__ value,
@@ -127,16 +114,8 @@ int msda_cm_fwd(const void* value, const void* x_cm, const void* y_cm,
                 const int* level_w, int n_batch, int s_total, int n_heads,
                 int dim, int n_levels, int n_points, int lq, int dtype,
                 void* stream) {
-  if (n_levels < 1 || n_levels > MSDA_MAX_LEVELS) return cudaErrorInvalidValue;
   Levels levels;
-  int start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    levels.h[l] = level_h[l];
-    levels.w[l] = level_w[l];
-    levels.start[l] = start;
-    start += level_h[l] * level_w[l];
-  }
-  if (start != s_total) return cudaErrorInvalidValue;
+  if (!make_levels(&levels, level_h, level_w, n_levels, s_total)) return cudaErrorInvalidValue;
   const long long n_warps = static_cast<long long>(n_batch) * n_heads * lq;
   if (n_warps == 0) return cudaSuccess;
   const int threads = 256;

@@ -13,12 +13,14 @@ follow the flax tree:
 * ``query_embed`` and ``level_embed`` as they are.
 
 It is strict: a port tensor left unset, a JAX leaf left unused or a shape
-mismatch raises, naming the key.
+mismatch raises, naming the key.  One exception: a tree from an eval-mode
+init lacks the two train-only modules (``ls_feat_viz``, ``ls_text_proj``);
+those stay at their init, and ``load_jax_params`` returns their keys.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -63,10 +65,19 @@ def jax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_jax_params(model: nn.Module, variables: Mapping) -> None:
+# modules that only a train-mode init of the JAX model creates
+TRAIN_ONLY = ("ls_feat_viz.", "ls_text_proj.")
+
+
+def load_jax_params(model: nn.Module, variables: Mapping) -> List[str]:
+    """Copy ``variables`` into ``model``; returns the train-only keys the
+    tree lacked (left at their init), else an empty list."""
     arrays = jax_to_state_dict(variables)
     target = model.state_dict()
-    missing = sorted(set(target) - set(arrays))
+    absent = set(target) - set(arrays)
+    train_only = sorted(k for k in target if k.startswith(TRAIN_ONLY))
+    left = train_only if set(train_only) <= absent else []
+    missing = sorted(absent - set(left))
     unused = sorted(set(arrays) - set(target))
     if missing:
         raise KeyError(f"port tensors with no JAX leaf: {missing[:10]}"
@@ -74,11 +85,13 @@ def load_jax_params(model: nn.Module, variables: Mapping) -> None:
     if unused:
         raise KeyError(f"JAX leaves the port does not use: {unused[:10]}"
                        f"{' ...' if len(unused) > 10 else ''}")
-    for key, tensor in target.items():
+    loaded = {k: t for k, t in target.items() if k not in left}
+    for key, tensor in loaded.items():
         arr = arrays[key]
         if tuple(arr.shape) != tuple(tensor.shape):
             raise ValueError(f"{key}: JAX shape {tuple(arr.shape)} != port shape "
                              f"{tuple(tensor.shape)}")
     with torch.no_grad():
-        for key, tensor in target.items():
+        for key, tensor in loaded.items():
             tensor.copy_(torch.from_numpy(arrays[key]))
+    return left

@@ -27,8 +27,9 @@ def test_port_has_the_slice_modules():
                  "models.layers", "models.position_encoding", "models.backbone_resnet",
                  "models.text_encoder", "models.cross_modal",
                  "models.deformable_transformer", "models.mask_head", "models.ocpg",
-                 "models.build", "data.synthetic", "data.transforms", "engine.infer",
-                 "utils.weights"):
+                 "models.build", "models.matcher", "models.criterion", "data.synthetic",
+                 "data.transforms", "engine.infer", "engine.optim", "engine.train",
+                 "utils.weights", "utils.box_ops"):
         assert f"ocpg_tpu_torch.{name}" in mods, name
 
 

@@ -180,9 +180,3 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
     model = build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ClipInferenceEngine(model)
-
-
-def test_train_forward_is_not_ported(inputs):
-    model = build_model(port_config(_jax_cfg("davis")), device="cpu")
-    with pytest.raises(NotImplementedError, match="train slice"):
-        model(*(torch.from_numpy(a) for a in inputs), train=True)

@@ -89,14 +89,23 @@ def test_resizes_match_jax(size_in, size_out):
            j_image.nearest_resize(jnp.asarray(mask), size_out), 0.0)
     _close(_nhwc(p_image.bilinear_resize(xt, size_out)),
            j_image.bilinear_resize(jnp.asarray(x), size_out), SHALLOW)
-    # align_corners=True at a non-integer scale: torch computes the source
-    # coordinate scale * dst in float32 where the JAX matrices use float64,
-    # so a weight may differ by one float32 ulp of a coordinate near 100
-    # (~1e-5 of the neighbours' difference); the eval path never calls it
+    # align_corners=True (the train path's level-set features and loss):
+    # both sides build the matrices in float64 and apply them in float32
     _close(_nhwc(p_image.bilinear_resize(xt, size_out, align_corners=True)),
-           j_image.bilinear_resize(jnp.asarray(x), size_out, align_corners=True), 5e-5)
+           j_image.bilinear_resize(jnp.asarray(x), size_out, align_corners=True), SHALLOW)
     _close(_nhwc(p_image.bicubic_resize(xt, size_out)),
            j_image.bicubic_resize(jnp.asarray(x), size_out), SHALLOW)
+
+
+@pytest.mark.parametrize("size_in,size_out", [((12, 20), (48, 80)), ((10, 7), (23, 16))])
+def test_align_corners_resize_matches_jax_in_bfloat16(size_in, size_out):
+    """bf16 operands with float32 accumulation, rounded to bf16 after each
+    of the two passes on both sides: 1e-2 of max |out| (a few bf16 ulps)."""
+    x = _randn(np.random.default_rng(13), 2, *size_in, 3)
+    got = p_image.bilinear_resize(_nchw(x).bfloat16(), size_out, align_corners=True)
+    assert got.dtype == torch.bfloat16
+    want = j_image.bilinear_resize(jnp.asarray(x, jnp.bfloat16), size_out, align_corners=True)
+    _close(_nhwc(got.float()), np.asarray(want, np.float32), 1e-2)
 
 
 def test_pixel_shuffle_matches_jax():
@@ -112,7 +121,7 @@ def test_mlp_and_feature_resizer_match_jax():
     pm = p_layers.MLP(24, 32, 5, 3)
     v = _carry(j_layers.MLP(32, 5, 3), pm, jnp.asarray(x))
     _close(pm(torch.from_numpy(x)), j_layers.MLP(32, 5, 3).apply(v, jnp.asarray(x)), SHALLOW)
-    pf = p_layers.FeatureResizer(24, 16)
+    pf = p_layers.FeatureResizer(24, 16).eval()       # dropout off, as deterministic=True
     v = _carry(j_layers.FeatureResizer(16), pf, jnp.asarray(x), std=0.3)
     _close(pf(torch.from_numpy(x)), j_layers.FeatureResizer(16).apply(v, jnp.asarray(x)),
            SHALLOW)
@@ -282,7 +291,7 @@ def test_deformable_transformer_matches_jax():
     kw = dict(d_model=d, nhead=8, num_encoder_layers=2, num_decoder_layers=2,
               dim_feedforward=32, num_feature_levels=len(SHAPES))
     jm = j_dt.DeformableTransformer(**kw)
-    pm = p_dt.DeformableTransformer(**kw)
+    pm = p_dt.DeformableTransformer(**kw).eval()      # dropout off, as deterministic=True
     jargs = ([jnp.asarray(a) for a in srcs], jnp.asarray(tgt),
              [jnp.asarray(m) for m in masks], [jnp.asarray(p) for p in poses],
              jnp.asarray(qe))

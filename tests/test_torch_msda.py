@@ -1,5 +1,5 @@
-"""The port's MSDA forward (``ocpg_tpu_torch/ops/ms_deform_attn.py``) against
-the JAX package's, on the CPU.
+"""The port's MSDA forward and backward (``ocpg_tpu_torch/ops/ms_deform_attn.py``)
+against the JAX package's, on the CPU.
 
 * The plain version against the JAX float32 gather path ``ms_deform_attn``
   at rtol/atol 1e-5 (the bound of tests/test_ms_deform_attn_pallas.py for
@@ -10,21 +10,32 @@ the JAX package's, on the CPU.
   its hat rows to bfloat16.
 * The dispatcher: a CPU tensor takes the plain version and launches nothing;
   a device with no path and malformed inputs raise.
+* The plain backward (autograd through the plain version) against
+  ``jax.grad`` of the JAX gather path at 1e-4 (the bound of
+  tests/test_ms_deform_attn_pallas.py for those gradients), including
+  samples exactly on integer pixels and at xp = -1, where the derivative is
+  the right-sided one; against the interpreted Pallas backward
+  ``ms_deform_attn_pallas_bwd_cm`` at 2e-2 of each gradient's max (it rounds
+  its operands to bfloat16); zero coordinate and weight gradients at
+  non-finite coordinates; and ``torch.autograd.gradcheck`` in float64.
 
-The CUDA kernel itself is held against the plain version on the card by
-``chip_smoke.py``.
+The CUDA kernels themselves are held against the plain versions on the
+card by ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
 from ocpg_tpu.ops.ms_deform_attn import _cm_to_standard, ms_deform_attn
-from ocpg_tpu.ops.ms_deform_attn_pallas import ms_deform_attn_pallas_cm
+from ocpg_tpu.ops.ms_deform_attn_pallas import (ms_deform_attn_pallas_bwd_cm,
+                                                 ms_deform_attn_pallas_cm)
 
 from ocpg_tpu_torch.ops import ms_deform_attn as port_msda
 from ocpg_tpu_torch.ops.ms_deform_attn import (ms_deform_attn_cm,
+                                                ms_deform_attn_cm_backward,
                                                 ms_deform_attn_cm_reference)
 
 LEVEL_SETS = {
@@ -32,6 +43,9 @@ LEVEL_SETS = {
     "four_levels_to_1x1": ((8, 10), (4, 5), (2, 3), (1, 1)),
     "one_level": ((5, 7),),
 }
+# power-of-two sizes: x * W is exact in float32 whatever the multiply-add
+# contraction, so both packages see the same exactly-integer coordinates
+POW2_LEVELS = ((8, 4), (4, 2), (2, 1))
 
 
 def _inputs(shapes, seed, n=2, m=4, d=8, lq=6, p=3, integer_coords=False):
@@ -132,3 +146,118 @@ def test_dispatcher_raises_instead_of_falling_back():
         ms_deform_attn_cm(value, shapes, x, y, aw[..., :-1])
     with pytest.raises(ValueError, match="levels"):
         ms_deform_attn_cm(value, (), x, y, aw)
+
+
+# ------------------------------------------------------------- backward --
+def _jax_grads(value, shapes, x, y, aw, g):
+    """jax.grad of <ms_deform_attn(value, ...), g> through the gather path,
+    in CM layout."""
+    def loss(v, xc, yc, a):
+        locs, attn = _cm_to_standard(xc, yc, a)
+        return (ms_deform_attn(v, shapes, locs, attn) * g).sum()
+
+    grads = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (value, x, y, aw)))
+    return [np.asarray(a) for a in grads]
+
+
+def _port_grads(value, shapes, x, y, aw, g):
+    return [t.numpy() for t in ms_deform_attn_cm_backward(
+        *_torch(value, shapes, x, y, aw), torch.from_numpy(g))]
+
+
+def _torch(value, shapes, x, y, aw):
+    return (torch.from_numpy(value), shapes, *map(torch.from_numpy, (x, y, aw)))
+
+
+def _cotangent(value, x, seed):
+    n, _, m, d = value.shape
+    return np.random.default_rng(seed).standard_normal((n, x.shape[-1], m * d)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("levels,integer_coords", [
+    ("two_levels", False), ("four_levels_to_1x1", False), ("pow2", False), ("pow2", True)])
+def test_plain_backward_matches_jax_gather_grad(levels, integer_coords):
+    """Exact pixel coordinates only on power-of-two level sizes (POW2_LEVELS)."""
+    shapes = POW2_LEVELS if levels == "pow2" else LEVEL_SETS[levels]
+    value, x, y, aw = _inputs(shapes, seed=11, integer_coords=integer_coords)
+    g = _cotangent(value, x, seed=12)
+    for name, got, want in zip(("d_value", "d_x", "d_y", "d_aw"),
+                               _port_grads(value, shapes, x, y, aw, g),
+                               _jax_grads(value, shapes, x, y, aw, g)):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_plain_backward_is_right_sided_at_xp_minus_one():
+    """x = -0.5 / W puts xp at exactly -1: the forward is 0 there, the
+    right-sided derivative is aw * v[., 0] * W, as the JAX gather autodiff."""
+    shapes = POW2_LEVELS
+    value, x, y, aw = _inputs(shapes, seed=13)
+    for lid, (h, w) in enumerate(shapes):
+        x[:, :, lid, 0] = -0.5 / w
+    g = _cotangent(value, x, seed=14)
+    got = _port_grads(value, shapes, x, y, aw, g)
+    want = _jax_grads(value, shapes, x, y, aw, g)
+    assert np.abs(want[1][:, :, :, 0]).max() > 0.1      # the derivative is not 0
+    for name, a, b in zip(("d_value", "d_x", "d_y", "d_aw"), got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_plain_backward_matches_interpreted_pallas_kernel():
+    shapes = LEVEL_SETS["two_levels"]
+    value, x, y, aw = _inputs(shapes, seed=15)
+    g = _cotangent(value, x, seed=16)
+    want = ms_deform_attn_pallas_bwd_cm(*map(jnp.asarray, (value,)), shapes,
+                                        *map(jnp.asarray, (x, y, aw, g)), 128, True)
+    for name, got, ref in zip(("d_value", "d_x", "d_y", "d_aw"),
+                              _port_grads(value, shapes, x, y, aw, g), want):
+        ref = np.asarray(ref, np.float32)
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(got / scale, ref / scale, atol=2e-2, err_msg=name)
+
+
+def test_plain_backward_at_non_finite_coordinates():
+    """NaN / inf coordinates (wholly padded frames): zero d_x, d_y and d_aw
+    there, and a finite d_value."""
+    shapes = LEVEL_SETS["two_levels"]
+    value, x, y, aw = _inputs(shapes, seed=17)
+    x[0, :, :, :, 0] = np.nan
+    y[1, :, 1, :, 2] = np.inf
+    g = _cotangent(value, x, seed=18)
+    d_value, d_x, d_y, d_aw = _port_grads(value, shapes, x, y, aw, g)
+    assert np.isfinite(d_value).all()
+    for grad in (d_x, d_y, d_aw):
+        assert np.isfinite(grad).all()
+        assert (grad[0, :, :, :, 0] == 0).all() and (grad[1, :, 1, :, 2] == 0).all()
+        assert np.abs(grad).max() > 0
+
+
+def test_plain_version_gradcheck_float64():
+    """Away from the kinks (coordinates off the pixel grid and the borders)."""
+    shapes = ((3, 4), (2, 2))
+    rng = np.random.default_rng(19)
+    n, m, d, p, lq = 1, 2, 3, 2, 3
+    value = torch.from_numpy(rng.standard_normal((n, 16, m, d)))
+    x = torch.from_numpy(rng.uniform(0.15, 0.85, (n, m, 2, p, lq)))
+    y = torch.from_numpy(rng.uniform(0.15, 0.85, (n, m, 2, p, lq)))
+    aw = torch.from_numpy(rng.uniform(0.1, 1.0, (n, m, 2, p, lq)))
+    inputs = [t.requires_grad_() for t in (value, x, y, aw)]
+    assert torch.autograd.gradcheck(
+        lambda v, a, b, c: ms_deform_attn_cm_reference(v, shapes, a, b, c), inputs)
+
+
+def test_cpu_backward_launches_nothing():
+    shapes = LEVEL_SETS["two_levels"]
+    value, x, y, aw = _inputs(shapes, seed=20)
+    g = _cotangent(value, x, seed=21)
+    port_msda.bwd_launches = 0
+    got = _port_grads(value, shapes, x, y, aw, g)
+    assert port_msda.bwd_launches == 0
+    # the same as autograd through the dispatcher
+    args = [t.requires_grad_() for t in map(torch.from_numpy, (value, x, y, aw))]
+    out = ms_deform_attn_cm(args[0], shapes, *args[1:])
+    want = torch.autograd.grad(out, args, torch.from_numpy(g))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
