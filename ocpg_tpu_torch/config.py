@@ -1,10 +1,12 @@
 """Model configuration: a copy of ``ocpg_tpu/config.py`` for the port.
 
-The fields and the two R101 presets are those of the JAX package, with
-four fields dropped because they select JAX machinery the port does not
-have: ``msda_impl`` and ``swin_attn_impl`` (the port's MSDA dispatches on
-the tensor's device, see ``ops/ms_deform_attn.py``), ``prng_impl`` (JAX's
-PRNG) and ``data_parallel`` (the JAX mesh).  Passing any of them raises.
+The fields and the presets (R101, Video Swin-T and -B) are those of the
+JAX package, with four fields dropped because they select JAX machinery the
+port does not have: ``msda_impl`` and ``swin_attn_impl`` (the port's MSDA
+and Swin window attention dispatch on the tensor's device, see
+``ops/ms_deform_attn.py`` and ``ops/window_attention.py``), ``prng_impl``
+(JAX's PRNG) and ``data_parallel`` (the JAX mesh).  Passing any of them
+raises.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class OCPGConfig:
     # * Backbone
-    backbone: str = "resnet50"  # resnet50 | resnet101
+    backbone: str = "resnet50"  # resnet50 | resnet101 | video_swin_{t,s,b}_p4w7 | swin_{t,s,b,l}_p4w7
     text_backbone: str = "roberta-base"
     text_layers: int = 12
     text_hidden: int = 768
@@ -114,3 +116,12 @@ def a2d_r101_boxsup() -> OCPGConfig:
 def ytvos_r101_boxsup() -> OCPGConfig:
     return OCPGConfig(backbone="resnet101", dataset_file="ytvos", supervision="box",
                       epochs=10, lr_drop=(6, 8), num_frames=3)
+
+
+def a2d_videoswin_tiny() -> OCPGConfig:
+    return OCPGConfig(backbone="video_swin_t_p4w7", dataset_file="a2d", epochs=12,
+                      lr_drop=(3, 5))
+
+
+def davis_videoswin_base() -> OCPGConfig:
+    return OCPGConfig(backbone="video_swin_b_p4w7", dataset_file="davis", epochs=10)

@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from ..config import OCPGConfig
+from .backbone_video_swin import WindowAttention3D
 from .criterion import CriterionConfig
 from .deformable_transformer import offset_bias
 from .matcher import matcher_config
@@ -59,17 +60,25 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
 
 def init_params(model: OCPG, generator: torch.Generator) -> None:
     """Random init from ``generator`` after the JAX package's initialisers:
-    xavier-uniform Linear weights, lecun-normal convolutions, zero biases,
-    fan-in-normal embeddings, N(0, 1) query and level embeddings, and the
-    MSDA, class-prior and box-refinement special cases."""
+    xavier-uniform Linear weights (lecun-normal, flax's Dense default, in
+    the Swin backbones), lecun-normal convolutions, zero biases,
+    fan-in-normal embeddings, N(0, 1) query and level embeddings, the Swin
+    bias tables truncated-normal with std 0.02 (LayerNorms keep ones and
+    zeros), and the MSDA, class-prior and box-refinement special cases."""
     g = generator
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Linear):
             fan_in, fan_out = mod.in_features, mod.out_features
-            a = math.sqrt(6.0 / (fan_in + fan_out))
-            mod.weight.data.uniform_(-a, a, generator=g)
+            if name.startswith("backbone."):
+                mod.weight.data.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=g)
+            else:
+                a = math.sqrt(6.0 / (fan_in + fan_out))
+                mod.weight.data.uniform_(-a, a, generator=g)
             if mod.bias is not None:
                 mod.bias.data.zero_()
+        elif isinstance(mod, WindowAttention3D):
+            nn.init.trunc_normal_(mod.relative_position_bias_table.data, std=0.02,
+                                  a=-0.04, b=0.04, generator=g)
         elif isinstance(mod, nn.Conv2d):
             fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
             mod.weight.data.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=g)

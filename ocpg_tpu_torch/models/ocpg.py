@@ -1,9 +1,9 @@
 """OCPG top-level model: counterpart of ``ocpg_tpu/models/ocpg.py``.
 
-backbone -> text encoder -> per level {input_proj -> GroupNorm -> LFM ->
-VL fusion -> LFM} -> deformable transformer -> class / box heads ->
-dynamic-conv mask head -> MSO -> nearest x4 upsample, then one of three
-branches:
+backbone (ResNet-50/101, Video Swin or 2D Swin) -> text encoder -> per
+level {input_proj -> GroupNorm -> LFM -> VL fusion -> LFM} -> deformable
+transformer -> class / box heads -> dynamic-conv mask head -> MSO ->
+nearest x4 upsample, then one of three branches:
 
 * train (``train=True``, with ``targets``): the mask head for every
   decoder layer, the matcher per layer (no gradient), the level-set
@@ -35,6 +35,8 @@ import torch.nn as nn
 from ..config import OCPGConfig
 from ..ops.image import bicubic_resize, bilinear_resize, nearest_resize, pixel_shuffle
 from .backbone_resnet import build_resnet
+from .backbone_swin2d import build_swin_2d
+from .backbone_video_swin import build_video_swin
 from .cross_modal import LFM, VisionLanguageFusion
 from .deformable_transformer import DeformableTransformer
 from .layers import MLP, FeatureResizer, float32_island, inverse_sigmoid
@@ -54,16 +56,22 @@ def _gather_query(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 2, idx)
 
 
+def build_backbone(cfg: OCPGConfig) -> nn.Module:
+    if cfg.backbone in ("resnet50", "resnet101"):
+        return build_resnet(cfg.backbone, cfg.dilation)
+    if cfg.backbone.startswith("video_swin"):
+        return build_video_swin(cfg.backbone)
+    if cfg.backbone.startswith("swin"):
+        return build_swin_2d(cfg.backbone)
+    raise NotImplementedError(cfg.backbone)
+
+
 class OCPG(nn.Module):
     def __init__(self, cfg: OCPGConfig):
         super().__init__()
-        if cfg.backbone not in ("resnet50", "resnet101"):
-            raise NotImplementedError(
-                f"backbone {cfg.backbone!r}: the port has ResNet-50/101; "
-                "the Swin backbones come with a later slice")
         self.cfg = cfg
         hidden = cfg.hidden_dim
-        self.backbone = build_resnet(cfg.backbone, cfg.dilation)
+        self.backbone = build_backbone(cfg)
         bb_ch = self.backbone.num_channels
         self.text_encoder = RobertaEncoder(RobertaConfig(
             vocab_size=cfg.text_vocab, hidden_size=cfg.text_hidden,
@@ -132,7 +140,10 @@ class OCPG(nn.Module):
         # ---------------- visual backbone (frames in the batch dim) ----------
         frames = samples.reshape(b * t_in, H, W, 3).permute(0, 3, 1, 2)
         frames_mask = samples_mask.reshape(b * t_in, H, W)
-        feats = list(self.backbone(frames))
+        if self.cfg.backbone.startswith("resnet"):
+            feats = list(self.backbone(frames))
+        else:   # Swin: the video variant attends across the clip's t_in frames
+            feats = list(self.backbone(frames, num_frames=t_in))
         if valid_indices is not None:        # A2D / JHMDB: one annotated frame
             sel = torch.arange(b, device=dev) * t_in + valid_indices.long()
             feats = [f[sel] for f in feats]

@@ -23,7 +23,7 @@ from typing import Dict, Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "_build")
-SOURCES = ("ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu")
+SOURCES = ("ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu", "window_attention_fwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,7 +10,8 @@ follow the flax tree:
 * Conv ``kernel (H, W, I, O)`` -> Conv2d ``weight (O, I, H, W)``;
 * LayerNorm / GroupNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
 * the ``frozen`` collection -> the FrozenBatchNorm buffers;
-* ``query_embed`` and ``level_embed`` as they are.
+* every other leaf (``query_embed``, ``level_embed``, the Swin blocks'
+  ``relative_position_bias_table``) as it is.
 
 It is strict: a port tensor left unset, a JAX leaf left unused or a shape
 mismatch raises, naming the key.  One exception: a tree from an eval-mode

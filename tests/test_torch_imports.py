@@ -25,7 +25,8 @@ def test_port_has_the_slice_modules():
     mods = set(_port_modules())
     for name in ("config", "ops.ms_deform_attn", "ops._build", "ops.image",
                  "models.layers", "models.position_encoding", "models.backbone_resnet",
-                 "models.text_encoder", "models.cross_modal",
+                 "models.text_encoder", "models.cross_modal", "models.backbone_video_swin",
+                 "models.backbone_swin2d", "ops.window_attention",
                  "models.deformable_transformer", "models.mask_head", "models.ocpg",
                  "models.build", "models.matcher", "models.criterion", "data.synthetic",
                  "data.transforms", "engine.infer", "engine.optim", "engine.train",
