@@ -14,7 +14,11 @@ exit, no result line) if it goes wrong:
                  serving, A2D and train calls, with samples outside the map,
                  on integer pixel coordinates (xp = -1 among them) and at
                  NaN/inf coordinates; its backward (K2) at the train calls
-                 against autograd through the plain version; the Swin window
+                 against autograd through the plain version; their
+                 standard-layout entries (K3, K4) at the serving and train
+                 encoder calls, on the same samples in the standard layout;
+                 the dense-row (K5) and fused-K (K6) forwards at the same
+                 calls against the plain gather version; the Swin window
                  attention (K7) at the four Video Swin-B serving calls with
                  and without the SW-MSA mask, and at a 2D Swin (n = 49) call,
                  its autograd Function's gradients against autograd through
@@ -52,10 +56,18 @@ exit, no result line) if it goes wrong:
 8. swin_a2d   -- the A2D eval forward with the Video Swin-B backbone on one
                  5 x 384 x 640 clip (bf16, valid_indices): K7 launched 24
                  times, K1 8 times.
+9. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
+                 forward and backward at the train encoder call: K3 and K4
+                 launched once each, the gradients finite.
+10. msda_bench -- the port's MSDA kernel bench in this process
+                 (``ocpg_tpu_torch.scripts.bench_msda_kernel``, variants cm
+                 r4 fk sep, --bwd, eval shapes, checked against sep): every
+                 check within 2e-2, K1, K2, K5 and K6 each launched.
 
-Every launch counter (K1, K2, K7) is reset just before each of the phases
-serve, a2d, train, swin_serve and swin_a2d runs its path and read just
-after; the ``kernels`` line gives each kernel's count on every path.
+Every launch counter (K1-K7) is reset just before each of the phases
+serve, a2d, train, swin_serve, swin_a2d, std_op and msda_bench runs its
+path and read just after; the ``kernels`` line gives each kernel's count
+on every path.
 
 It imports nothing of JAX.  The last three lines of its output are the
 card's name and power limit (nvidia-smi), one JSON object listing the
@@ -85,7 +97,9 @@ from ocpg_tpu_torch.models.build import build_model, build_weight_dict, criterio
 from ocpg_tpu_torch.models.text_encoder import SimpleTokenizer
 from ocpg_tpu_torch.ops import _build
 from ocpg_tpu_torch.ops import ms_deform_attn as msda
+from ocpg_tpu_torch.ops import ms_deform_attn_variants as msda_var
 from ocpg_tpu_torch.ops import window_attention as wattn
+from ocpg_tpu_torch.scripts import bench_msda_kernel
 
 # H100 SXM (NVIDIA's data sheet): HBM rate, float32 rate outside the tensor
 # cores, dense bf16 tensor-core rate
@@ -106,6 +120,8 @@ SWIN_HEADS = (4, 8, 16, 32)
 SWIN_B_BLOCKS = 24
 # launch counters of the port's kernels: (name, module, attribute)
 COUNTERS = (("K1", msda, "launches"), ("K2", msda, "bwd_launches"),
+            ("K3", msda, "std_launches"), ("K4", msda, "std_bwd_launches"),
+            ("K5", msda_var, "r4_launches"), ("K6", msda_var, "fk_launches"),
             ("K7", wattn, "launches"))
 
 
@@ -207,6 +223,11 @@ def read_counts() -> dict:
     return {name: getattr(mod, attr) for name, mod, attr in COUNTERS}
 
 
+def counts_of(**launched) -> dict:
+    """The expected counts of a path: the named kernels, every other one 0."""
+    return {name: launched.get(name, 0) for name, _, _ in COUNTERS}
+
+
 def timed_bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / flops_per_s * 1e3
@@ -299,7 +320,144 @@ def phase_kernel(results):
     results["msda"] = report["serve encoder"]
     results["msda_train"] = report["train encoder"]
     results["msda_bwd"] = report["bwd train encoder"]
+    msda_other_kernel_checks(results)
     wattn_kernel_checks(results)
+
+
+def held(label, got, want, limit):
+    """max |got - want| against limit x max |want|; returns the error."""
+    check(bool(torch.isfinite(want).all()), f"{label}: plain version not finite")
+    err = (got.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(math.isfinite(err) and err <= limit * scale,
+          f"{label}: max |kernel - plain| {err} > {limit} x max {scale}")
+    log(f"kernel {label}: max_abs_err {err:.3e} (limit {limit} x {scale:.4g})")
+    return err
+
+
+def r4_mma_flops(shapes, x, y, dim):
+    """Tensor-core FLOPs K5 executes on these inputs: 2 x 64 x 64 x D for
+    each (n, m, 64-query tile, level, 64-key chunk) that an in-map corner of
+    the tile lands in (the kernel skips the other chunks)."""
+    n, m, _, p, lq = x.shape
+    nm = torch.arange(n * m, device=x.device).reshape(n, m, 1, 1)
+    tile = (torch.arange(lq, device=x.device) // 64).reshape(1, 1, 1, lq)
+    n_tiles = -(-lq // 64)
+    chunks = 0
+    for lid, (h, w) in enumerate(shapes):
+        xp = x[:, :, lid] * w - 0.5
+        yp = y[:, :, lid] * h - 0.5
+        ok = (xp > -1) & (yp > -1) & (xp < w) & (yp < h)
+        x0 = torch.where(ok, torch.floor(xp), 0.0).long()
+        y0 = torch.where(ok, torch.floor(yp), 0.0).long()
+        n_chunks = -(-(h * w) // 64)
+        ids = []
+        for cx, cy in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
+            inside = ok & (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
+            cid = ((nm * n_tiles + tile) * n_chunks + (cy * w + cx) // 64)
+            ids.append(cid[inside])
+        chunks += torch.unique(torch.cat(ids)).numel()
+    return chunks * 2 * 64 * 64 * dim
+
+
+def fk_mma_flops(shapes, n, m, dim, p, lq):
+    """Tensor-core FLOPs K6 executes: per (n, m, point, 64-query tile) and
+    level, a 64 x 64 x 16 product per block of 64 A columns and K step that
+    overlaps the level's rows of cx_all."""
+    koff = per_tile = 0
+    for h, w in shapes:
+        steps = (-(-(koff + w) // 16) * 16 - koff // 16 * 16) // 16
+        per_tile += -(-(h * dim) // 64) * steps
+        koff += w
+    return n * m * p * -(-lq // 64) * per_tile * 2 * 64 * 64 * 16
+
+
+def msda_other_kernel_checks(results):
+    """The standard-layout entries K3 (forward) and K4 (backward) at the
+    serving and train encoder calls, on msda_inputs in the standard layout
+    (out-of-map, integer and NaN/inf samples), against their plain versions
+    with K1's and K2's limits; the dense-row (K5) and fused-K (K6) forwards
+    at the same calls against the plain gather version within 2e-2 x max
+    |out|, the bound of tests/test_ms_deform_attn_pallas.py for the TPU's
+    dense-row and fused-K kernels (they round their tensor-core operands to
+    bf16 in both dtypes).  K5 and K6 sample nothing at a non-finite
+    coordinate, as K1 and the plain version do.  Then times in bf16."""
+    calls = (("serve encoder", SERVE_SHAPES, SERVE_N), ("train encoder", TRAIN_SHAPES, TRAIN_N))
+    for name, shapes, n in calls:
+        lq = sum(h * w for h, w in shapes)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            tag = f"{name} N={n} Lq={lq} {str(dtype)[6:]}"
+            value, x, y, aw = msda_inputs(shapes, n, lq, dtype, seed=7)
+            locs, attn = msda._cm_to_standard(x, y, aw)
+            got = msda.ms_deform_attn_fast(value, shapes, locs, attn)
+            torch.cuda.synchronize()
+            err3 = held(f"K3 msda_std {tag}", got,
+                        msda.ms_deform_attn_reference(value.float(), shapes, locs, attn), tol)
+            g = torch.randn(n, lq, HEADS * HEAD_DIM, generator=torch.Generator(
+                device="cuda").manual_seed(9), device="cuda").to(dtype)
+            got = msda.ms_deform_attn_backward(value, shapes, locs, attn, g)
+            torch.cuda.synchronize()
+            want = msda.ms_deform_attn_grad_reference(value.float(), shapes, locs, attn,
+                                                      g.float())
+            err4 = 0.0
+            for gname, a, b in zip(("d_value", "d_locs", "d_attn"), got, want):
+                check(a.dtype == (dtype if gname == "d_value" else torch.float32),
+                      f"K4 {gname} dtype {a.dtype}")
+                err4 = max(err4, held(f"K4 msda_std_bwd {tag} {gname}", a, b, tol))
+            want = msda.ms_deform_attn_cm_reference(value.float(), shapes, x, y, aw)
+            errs = {}
+            for kname, label, fn in (("K5", "msda_r4", msda_var.ms_deform_attn_cm_r4),
+                                     ("K6", "msda_fk", msda_var.ms_deform_attn_cm_fk)):
+                got = fn(value, shapes, x, y, aw)
+                torch.cuda.synchronize()
+                errs[kname] = held(f"{kname} {label} {tag}", got, want, 2e-2)
+            del got, want
+            if dtype != torch.bfloat16:
+                continue
+            fwd_bytes, fwd_flops = msda_work(shapes, value, x, y, aw)
+            bwd_bytes, bwd_flops = msda_bwd_work(shapes, value, x, y, aw)
+            fwd_bound = timed_bound(fwd_bytes, fwd_flops)
+            bwd_bound = timed_bound(bwd_bytes, bwd_flops)
+            timings = {
+                "K3": (lambda: msda.ms_deform_attn_fast(value, shapes, locs, attn), 50,
+                       lambda: msda.ms_deform_attn_reference(value, shapes, locs, attn), 10,
+                       fwd_bound, err3),
+                "K5": (lambda: msda_var.ms_deform_attn_cm_r4(value, shapes, x, y, aw), 20,
+                       lambda: msda_var.ms_deform_attn_cm_r4_reference(value, shapes, x, y, aw),
+                       3, fwd_bound, errs["K5"]),
+                "K6": (lambda: msda_var.ms_deform_attn_cm_fk(value, shapes, x, y, aw), 20,
+                       lambda: msda_var.ms_deform_attn_cm_fk_reference(value, shapes, x, y, aw),
+                       3, fwd_bound, errs["K6"]),
+            }
+            for kname, (fn, iters, plain, plain_iters, (bound_ms, bound_by), err) in (
+                    timings.items()):
+                ms = cuda_ms(fn, iters)
+                plain_ms = cuda_ms(plain, plain_iters, warmup=1)
+                entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=err)
+                extra = ""
+                if kname != "K3":
+                    mma = (r4_mma_flops(shapes, x, y, HEAD_DIM) if kname == "K5" else
+                           fk_mma_flops(shapes, n, HEADS, HEAD_DIM, POINTS, lq))
+                    entry.update(mma_gflop=mma / 1e9, mma_bound_ms=mma / BF16_FLOPS_PER_S * 1e3)
+                    extra = (f"; executes {mma / 1e9:.1f} GFLOP on the tensor cores "
+                             f"(>= {entry['mma_bound_ms']:.4f} ms at 989 TFLOP/s, "
+                             f"{mma / (ms * 1e-3) / 1e12:.1f} TFLOP/s)")
+                log(f"kernel {kname} {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms by {bound_by}{extra}")
+                results.setdefault(kname, {})[name] = entry
+            # K4 alone against the plain backward alone, as K2
+            ms = cuda_ms(lambda: msda.ms_deform_attn_backward(value, shapes, locs, attn, g), 20)
+            inputs = [t.detach().requires_grad_() for t in (value, locs, attn)]
+            with torch.enable_grad():
+                out = msda.ms_deform_attn_reference(inputs[0], shapes, *inputs[1:])
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True), 5)
+            del inputs, out
+            log(f"kernel K4 {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]}")
+            results.setdefault("K4", {})[name] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                max_abs_err=err4)
 
 
 def swin_call(grid, heads, window=SWIN_WINDOW, frames=SWIN_T):
@@ -568,7 +726,7 @@ def serve_path(results, name, cfg, k7_per_dispatch):
     for r, o in zip(requests, out):
         check(o.shape == r.frames.shape[:3], f"answer {o.shape} for a {r.frames.shape} request")
         check(bool(np.isfinite(o).all()), "non-finite mask logits")
-    want = {"K1": 8 * dispatches, "K2": 0, "K7": k7_per_dispatch * dispatches}
+    want = counts_of(K1=8 * dispatches, K7=k7_per_dispatch * dispatches)
     check(counts == want, f"{name}: {dispatches} dispatches launched {counts}, want {want}")
     frames = sum(r.frames.shape[0] for r in requests)
     log(f"{name}: {len(requests)} requests, {frames} frames, {dispatches} dispatches, "
@@ -595,8 +753,8 @@ def phase_swin_serve(results):
 
 KERNEL_CLASSES = (   # (class, substrings of CUDA kernel names), first match wins
     ("wattn", ("wattn_fwd",)),
-    ("msda_cm_bwd", ("msda_cm_bwd",)),
-    ("msda", ("msda_cm_fwd",)),
+    ("msda_cm_bwd", ("msda_bwd_kernel",)),
+    ("msda", ("msda_fwd_kernel", "msda_r4_kernel", "msda_fk_kernel")),
     ("fft", ("fft",)),
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn")),
     ("gemm", ("gemm", "cutlass", "matmul", "sm90_xmma", "nvjet")),
@@ -665,7 +823,7 @@ def a2d_path(results, name, cfg, k7):
     out = model(*args, valid_indices=vidx)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {"K1": cfg.enc_layers + cfg.dec_layers, "K2": 0, "K7": k7}
+    want = counts_of(K1=cfg.enc_layers + cfg.dec_layers, K7=k7)
     check(counts == want, f"{name}: one forward launched {counts}, want {want}")
     results["paths"][name] = counts
     log(f"{name}: one {cfg.backbone} forward, launches {counts}")
@@ -717,8 +875,8 @@ def phase_train(results):
     counts = read_counts()
     k1, k2 = counts["K1"], counts["K2"]
     layers = cfg.enc_layers + cfg.dec_layers
-    check(counts == {"K1": layers, "K2": layers, "K7": 0},
-          f"train step launched {counts} (want K1 and K2 {layers} times each, K7 never)")
+    check(counts == counts_of(K1=layers, K2=layers),
+          f"train step launched {counts} (want K1 and K2 {layers} times each, no other)")
     results["paths"]["train"] = counts
     bad = [k for k, v in metrics.items() if not math.isfinite(v)]
     check(not bad and metrics["finite"] == 1.0, f"train step: non-finite {bad}")
@@ -757,6 +915,49 @@ def phase_train(results):
             f"K1 {classes.get('msda', 0.0):.2f} ms")
 
 
+# ------------------------------------------------------------------ std_op --
+def phase_std_op(results):
+    """The standard-layout op once, forward and backward, at the train
+    encoder call (bf16 value, msda_inputs in the standard layout)."""
+    lq = sum(h * w for h, w in TRAIN_SHAPES)
+    value, x, y, aw = msda_inputs(TRAIN_SHAPES, TRAIN_N, lq, torch.bfloat16, seed=21)
+    inputs = [t.requires_grad_() for t in (value, *msda._cm_to_standard(x, y, aw))]
+    reset_counts()
+    out = msda.ms_deform_attn_fast(inputs[0], TRAIN_SHAPES, *inputs[1:])
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == counts_of(K3=1, K4=1), f"std_op launched {counts}")
+    check(tuple(out.shape) == (TRAIN_N, lq, HEADS * HEAD_DIM) and bool(torch.isfinite(out).all()),
+          f"std_op output {tuple(out.shape)} not finite or of the wrong shape")
+    for t in inputs:
+        check(t.grad is not None and t.grad.shape == t.shape
+              and bool(torch.isfinite(t.grad).all()), "std_op gradient missing or not finite")
+    results["paths"]["std_op"] = counts
+    log(f"std_op: ms_deform_attn_fast forward + backward at the train encoder call, "
+        f"launches {counts}, output and gradients finite")
+
+
+# -------------------------------------------------------------- msda_bench --
+def phase_msda_bench(results):
+    """The port's MSDA kernel bench, in this process, as a user runs it."""
+    argv = ["--variants", "cm", "r4", "fk", "sep", "--bwd", "--shapes", "eval",
+            "--check", "sep"]
+    reset_counts()
+    out = bench_msda_kernel.main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(all(counts[k] >= 1 for k in ("K1", "K2", "K5", "K6"))
+          and counts["K3"] == counts["K4"] == counts["K7"] == 0,
+          f"msda_bench launched {counts}")
+    check(sorted(out["check"]) == ["cm", "fk", "r4", "sep"]
+          and all(e < 2e-2 for e in out["check"].values()),
+          f"msda_bench checks {out['check']}")
+    results["paths"]["msda_bench"] = counts
+    results["msda_bench"] = out
+    log(f"msda_bench: {bench_msda_kernel.__name__} {' '.join(argv)}: launches {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -773,15 +974,18 @@ def main() -> int:
         log(f"build log {src}:\n{text.strip()}")
     for name, fn in (("kernel", phase_kernel), ("card", lambda _: phase_card()),
                      ("serve", phase_serve), ("a2d", phase_a2d), ("train", phase_train),
-                     ("swin_serve", phase_swin_serve), ("swin_a2d", phase_swin_a2d)):
+                     ("swin_serve", phase_swin_serve), ("swin_a2d", phase_swin_a2d),
+                     ("std_op", phase_std_op), ("msda_bench", phase_msda_bench)):
         t0 = time.perf_counter()
         fn(results)
         log(f"phase {name} ok in {time.perf_counter() - t0:.1f} s")
 
-    # K1 timed at the serving encoder call (and at the train encoder), K2 at
-    # the train encoder, K7 at the Swin-B stage-0 call of a shifted block;
-    # launches counted on each path's run, the entry's own on its main path
-    # (train for K1 and K2, swin_serve for K7)
+    # K1 timed at the serving encoder call (and at the train encoder), K2,
+    # K3 and K4 at the train encoder (and the serving one), K5 and K6 at the
+    # serving encoder (the bench's eval call, and the train one), K7 at the
+    # Swin-B stage-0 call of a shifted block; launches counted on each
+    # path's run, the entry's own on its main path (train for K1 and K2,
+    # std_op for K3 and K4, msda_bench for K5 and K6, swin_serve for K7)
     def entry(name, source, replaces, k, counter, main_path, **extra):
         by_path = {path: counts[counter] for path, counts in results["paths"].items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -799,6 +1003,28 @@ def main() -> int:
         entry("ms_deform_attn_cm_backward", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_bwd.cu",
               "ocpg_tpu/ops/ms_deform_attn_pallas.py:994", results["msda_bwd"], "K2", "train",
               at="train encoder"),
+        entry("ms_deform_attn_fast", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
+              "ocpg_tpu/ops/ms_deform_attn_pallas.py:138", results["K3"]["train encoder"],
+              "K3", "std_op", at="train encoder",
+              serve_encoder=results["K3"]["serve encoder"]),
+        entry("ms_deform_attn_backward", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_bwd.cu",
+              "ocpg_tpu/ops/ms_deform_attn_pallas.py:370", results["K4"]["train encoder"],
+              "K4", "std_op", at="train encoder",
+              serve_encoder=results["K4"]["serve encoder"]),
+        entry("ms_deform_attn_cm_r4", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_r4.cu",
+              "ocpg_tpu/ops/ms_deform_attn_pallas.py:746", results["K5"]["serve encoder"],
+              "K5", "msda_bench", at="serve encoder",
+              mma_gflop=results["K5"]["serve encoder"]["mma_gflop"],
+              mma_bound_ms=results["K5"]["serve encoder"]["mma_bound_ms"],
+              train_encoder=results["K5"]["train encoder"],
+              bench_ms=results["msda_bench"]["ms"]["fwd/r4/eval"]),
+        entry("ms_deform_attn_cm_fk", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_fk.cu",
+              "ocpg_tpu/ops/ms_deform_attn_pallas.py:1159", results["K6"]["serve encoder"],
+              "K6", "msda_bench", at="serve encoder",
+              mma_gflop=results["K6"]["serve encoder"]["mma_gflop"],
+              mma_bound_ms=results["K6"]["serve encoder"]["mma_bound_ms"],
+              train_encoder=results["K6"]["train encoder"],
+              bench_ms=results["msda_bench"]["ms"]["fwd/fk/eval"]),
         entry("window_attention", "ocpg_tpu_torch/ops/csrc/window_attention_fwd.cu",
               "ocpg_tpu/ops/window_attention_pallas.py:139", results["wattn"], "K7",
               "swin_serve", at="swin-B stage 0, shifted block (bw=322, h=4, n=245, dh=32)",

@@ -1,10 +1,18 @@
-// Multi-scale deformable attention backward, channel-major query parameters.
+// Multi-scale deformable attention backward, in two layouts of the query
+// parameters: channel-major (CM) and the standard one.
 //
-// Replaces ocpg_tpu/ops/ms_deform_attn_pallas.py::ms_deform_attn_pallas_bwd_cm
-// (kernel body _msda_cm_bwd_kernel).  It computes the same contract, not the
-// TPU formulation (hat-row matmuls with a d_value accumulator carried across
-// a sequential grid): each sample's four corners are gathered directly, as
-// the reference CUDA col2im kernels did.  For the cotangent g (N, Lq, M*D)
+// Replaces two Pallas kernels of ocpg_tpu/ops/ms_deform_attn_pallas.py:
+//   * msda_cm_bwd: ms_deform_attn_pallas_bwd_cm (kernel body
+//     _msda_cm_bwd_kernel), gradients d_x, d_y, d_aw each (N, M, L, P, Lq);
+//   * msda_std_bwd: ms_deform_attn_pallas_bwd (kernel body _msda_bwd_kernel),
+//     the backward of ms_deform_attn_fast, gradients d_locs
+//     (N, Lq, M, L, P, 2) with d_x and d_y interleaved and d_attn
+//     (N, Lq, M, L, P).
+// Both compute the same contract, not the TPU formulation (hat-row matmuls
+// with a d_value accumulator carried across a sequential grid): each
+// sample's four corners are gathered directly, as the reference CUDA col2im
+// kernels did.  One kernel body serves both layouts (QueryLayout in
+// msda_common.cuh).  For the cotangent g (N, Lq, M*D)
 // of out = ms_deform_attn_cm(value, x, y, aw), with xp = x * W_l - 0.5 and
 // yp = y * H_l - 0.5 and w_c the bilinear weight of corner c:
 //
@@ -20,10 +28,12 @@
 // outside xp in [-1, W), yp in [-1, H), or at a non-finite coordinate (a
 // wholly padded frame), where d_x, d_y and d_aw are 0.
 //
-// Layouts: value (N, S, M, D) float32 or bfloat16; x, y, aw (N, M, L, P, Lq)
-// float32; g (N, Lq, M*D) in the value's type; d_value (N, S, M, D) float32
+// Layouts: value (N, S, M, D) float32 or bfloat16; query parameters float32
+// as above; g (N, Lq, M*D) in the value's type; d_value (N, S, M, D) float32
 // scratch that the wrapper zeroes and casts to the value's type afterwards;
-// d_x, d_y, d_aw (N, M, L, P, Lq) float32, every element written here.
+// the coordinate and weight gradients float32 in the parameters' layout,
+// every element written here (d_x and d_y already scaled by W_l and H_l, as
+// the Pallas kernels' wrappers scale them).
 //
 // What bounds it on an H100.  At the train encoder call (N=3, S=Lq=6800,
 // M=8, D=32, L=P=4, bf16 value) the function must move about 94 MB (value,
@@ -44,9 +54,10 @@
 // staged parameters) are later work.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
-// with ctypes (ocpg_tpu_torch/ops/_build.py); the wrapper is
-// ocpg_tpu_torch/ops/ms_deform_attn.py::ms_deform_attn_cm_backward, called
-// from the autograd Function behind ms_deform_attn_cm.
+// with ctypes (ocpg_tpu_torch/ops/_build.py); the wrappers are
+// ocpg_tpu_torch/ops/ms_deform_attn.py::ms_deform_attn_cm_backward (CM) and
+// ::ms_deform_attn_backward (standard), called from the autograd Functions
+// behind ms_deform_attn_cm and ms_deform_attn_fast.
 
 #include <stdint.h>
 
@@ -58,19 +69,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename scalar_t>
-__global__ void msda_cm_bwd_kernel(const scalar_t* __restrict__ value,
-                                   const float* __restrict__ x_cm,
-                                   const float* __restrict__ y_cm,
-                                   const float* __restrict__ aw_cm,
-                                   const scalar_t* __restrict__ grad_out,
-                                   float* __restrict__ d_value,
-                                   float* __restrict__ d_x,
-                                   float* __restrict__ d_y,
-                                   float* __restrict__ d_aw,
-                                   Levels levels, int n_batch, int s_total,
-                                   int n_heads, int dim, int n_levels,
-                                   int n_points, int lq) {
+template <typename scalar_t, typename Layout>
+__global__ void msda_bwd_kernel(const scalar_t* __restrict__ value,
+                                const float* __restrict__ x_ptr,
+                                const float* __restrict__ y_ptr,
+                                const float* __restrict__ aw_ptr,
+                                const scalar_t* __restrict__ grad_out,
+                                float* __restrict__ d_value,
+                                float* __restrict__ d_x,
+                                float* __restrict__ d_y,
+                                float* __restrict__ d_aw,
+                                Levels levels, int n_batch, int s_total,
+                                int n_heads, int dim, int n_levels,
+                                int n_points, int lq) {
   const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x +
                           threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -82,8 +93,8 @@ __global__ void msda_cm_bwd_kernel(const scalar_t* __restrict__ value,
   const int m = static_cast<int>(nm % n_heads);
   const int n = static_cast<int>(nm / n_heads);
 
-  // CM parameters of this (n, m): index ((nm * L + l) * P + p) * Lq + q
-  const long long cm_base = nm * n_levels * n_points * lq + q;
+  const long long p_base = Layout::base(n, m, q, n_heads, n_levels * n_points, lq);
+  const long long p_step = Layout::step(lq);
   const long long row_stride = static_cast<long long>(n_heads) * dim;  // one s step
   const long long nm_offset = static_cast<long long>(n) * s_total * row_stride +
                               static_cast<long long>(m) * dim;
@@ -101,13 +112,14 @@ __global__ void msda_cm_bwd_kernel(const scalar_t* __restrict__ value,
       const int w = levels.w[l];
       const long long level_offset = static_cast<long long>(levels.start[l]) * row_stride;
       for (int p = 0; p < n_points; ++p) {
-        const long long idx = cm_base + static_cast<long long>(l * n_points + p) * lq;
-        const float a = __ldg(aw_cm + idx);
+        const long long idx = p_base + static_cast<long long>(l * n_points + p) * p_step;
+        const long long ixy = idx * Layout::kXY;
+        const float a = __ldg(aw_ptr + idx);
         // two roundings, no fused multiply-add: the plain version computes
         // x * W - 0.5 the same way, so the two agree on which coordinates
         // are exactly integer, where the derivative is one-sided
-        const float xp = __fsub_rn(__fmul_rn(__ldg(x_cm + idx), static_cast<float>(w)), 0.5f);
-        const float yp = __fsub_rn(__fmul_rn(__ldg(y_cm + idx), static_cast<float>(h)), 0.5f);
+        const float xp = __fsub_rn(__fmul_rn(__ldg(x_ptr + ixy), static_cast<float>(w)), 0.5f);
+        const float yp = __fsub_rn(__fmul_rn(__ldg(y_ptr + ixy), static_cast<float>(h)), 0.5f);
         // warp-uniform; false for NaN and inf, and keeps the casts in range
         const bool in = xp >= -1.f && yp >= -1.f && xp < w && yp < h;
         float s_aw = 0.f, s_dx = 0.f, s_dy = 0.f;
@@ -146,12 +158,12 @@ __global__ void msda_cm_bwd_kernel(const scalar_t* __restrict__ value,
           const float gy = in ? static_cast<float>(h) * a * s_dy : 0.f;
           if (d0 == 0) {
             d_aw[idx] = ga;
-            d_x[idx] = gx;
-            d_y[idx] = gy;
+            d_x[ixy] = gx;
+            d_y[ixy] = gy;
           } else {
             d_aw[idx] += ga;
-            d_x[idx] += gx;
-            d_y[idx] += gy;
+            d_x[ixy] += gx;
+            d_y[ixy] += gy;
           }
         }
       }
@@ -159,16 +171,13 @@ __global__ void msda_cm_bwd_kernel(const scalar_t* __restrict__ value,
   }
 }
 
-extern "C" {
-
-// dtype: 0 = float32 value/grad_out, 1 = bfloat16 value/grad_out.
-// Returns the cudaError_t of the launch (0 on success).
-int msda_cm_bwd(const void* value, const void* x_cm, const void* y_cm,
-                const void* aw_cm, const void* grad_out, void* d_value,
-                void* d_x, void* d_y, void* d_aw, const int* level_h,
-                const int* level_w, int n_batch, int s_total, int n_heads,
-                int dim, int n_levels, int n_points, int lq, int dtype,
-                void* stream) {
+template <typename Layout>
+static int launch_bwd(const void* value, const float* x, const float* y,
+                      const float* aw, const void* grad_out, void* d_value,
+                      float* d_x, float* d_y, float* d_aw, const int* level_h,
+                      const int* level_w, int n_batch, int s_total, int n_heads,
+                      int dim, int n_levels, int n_points, int lq, int dtype,
+                      void* stream) {
   Levels levels;
   if (!make_levels(&levels, level_h, level_w, n_levels, s_total)) return cudaErrorInvalidValue;
   const long long n_warps = static_cast<long long>(n_batch) * n_heads * lq;
@@ -178,23 +187,53 @@ int msda_cm_bwd(const void* value, const void* x_cm, const void* y_cm,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    msda_cm_bwd_kernel<float><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        static_cast<const float*>(value), static_cast<const float*>(x_cm),
-        static_cast<const float*>(y_cm), static_cast<const float*>(aw_cm),
-        static_cast<const float*>(grad_out), static_cast<float*>(d_value),
-        static_cast<float*>(d_x), static_cast<float*>(d_y), static_cast<float*>(d_aw),
-        levels, n_batch, s_total, n_heads, dim, n_levels, n_points, lq);
+    msda_bwd_kernel<float, Layout><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+        static_cast<const float*>(value), x, y, aw, static_cast<const float*>(grad_out),
+        static_cast<float*>(d_value), d_x, d_y, d_aw, levels, n_batch, s_total, n_heads,
+        dim, n_levels, n_points, lq);
   } else if (dtype == 1) {
-    msda_cm_bwd_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(x_cm),
-        static_cast<const float*>(y_cm), static_cast<const float*>(aw_cm),
-        static_cast<const __nv_bfloat16*>(grad_out), static_cast<float*>(d_value),
-        static_cast<float*>(d_x), static_cast<float*>(d_y), static_cast<float*>(d_aw),
-        levels, n_batch, s_total, n_heads, dim, n_levels, n_points, lq);
+    msda_bwd_kernel<__nv_bfloat16, Layout><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(value), x, y, aw,
+        static_cast<const __nv_bfloat16*>(grad_out), static_cast<float*>(d_value), d_x,
+        d_y, d_aw, levels, n_batch, s_total, n_heads, dim, n_levels, n_points, lq);
   } else {
     return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" {
+
+// dtype: 0 = float32 value/grad_out, 1 = bfloat16 value/grad_out.
+// Each returns the cudaError_t of the launch (0 on success).
+
+// x_cm, y_cm, aw_cm and d_x, d_y, d_aw (N, M, L, P, Lq) float32.
+int msda_cm_bwd(const void* value, const void* x_cm, const void* y_cm,
+                const void* aw_cm, const void* grad_out, void* d_value,
+                void* d_x, void* d_y, void* d_aw, const int* level_h,
+                const int* level_w, int n_batch, int s_total, int n_heads,
+                int dim, int n_levels, int n_points, int lq, int dtype,
+                void* stream) {
+  return launch_bwd<CmLayout>(value, static_cast<const float*>(x_cm),
+                              static_cast<const float*>(y_cm),
+                              static_cast<const float*>(aw_cm), grad_out, d_value,
+                              static_cast<float*>(d_x), static_cast<float*>(d_y),
+                              static_cast<float*>(d_aw), level_h, level_w, n_batch,
+                              s_total, n_heads, dim, n_levels, n_points, lq, dtype, stream);
+}
+
+// locs and d_locs (N, Lq, M, L, P, 2), attn and d_attn (N, Lq, M, L, P) float32.
+int msda_std_bwd(const void* value, const void* locs, const void* attn,
+                 const void* grad_out, void* d_value, void* d_locs, void* d_attn,
+                 const int* level_h, const int* level_w, int n_batch, int s_total,
+                 int n_heads, int dim, int n_levels, int n_points, int lq, int dtype,
+                 void* stream) {
+  const float* xy = static_cast<const float*>(locs);
+  float* dxy = static_cast<float*>(d_locs);
+  return launch_bwd<StdLayout>(value, xy, xy + 1, static_cast<const float*>(attn),
+                               grad_out, d_value, dxy, dxy + 1,
+                               static_cast<float*>(d_attn), level_h, level_w, n_batch,
+                               s_total, n_heads, dim, n_levels, n_points, lq, dtype, stream);
 }
 
 }  // extern "C"

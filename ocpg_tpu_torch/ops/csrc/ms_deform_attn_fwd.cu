@@ -1,9 +1,17 @@
-// Multi-scale deformable attention forward, channel-major query parameters.
+// Multi-scale deformable attention forward, in two layouts of the query
+// parameters: channel-major (CM) and the standard one.
 //
-// Replaces ocpg_tpu/ops/ms_deform_attn_pallas.py::ms_deform_attn_pallas_cm
-// (kernel body _msda_cm_kernel).  It computes the same contract, not the TPU
-// formulation: there are no hat-row matmuls here, each sample is gathered
-// directly, as the reference CUDA im2col kernel did.
+// Replaces two Pallas kernels of ocpg_tpu/ops/ms_deform_attn_pallas.py:
+//   * msda_cm_fwd: ms_deform_attn_pallas_cm (kernel body _msda_cm_kernel),
+//     query parameters x, y, aw each (N, M, L, P, Lq);
+//   * msda_std_fwd: ms_deform_attn_pallas (kernel body _msda_kernel), the
+//     row-folded op behind ms_deform_attn_fast, query parameters in the
+//     reference MSDeformAttnFunction's layout: locs (N, Lq, M, L, P, 2) with
+//     x and y interleaved, attn (N, Lq, M, L, P).
+// Both compute the same contract, not the TPU formulation: there are no
+// hat-row matmuls here, each sample is gathered directly, as the reference
+// CUDA im2col kernel did.  One kernel body serves both; a layout type says
+// where a sample's x, y and aw are (QueryLayout in msda_common.cuh).
 //
 //   out[n, q, m*D + d] = sum_{l, p} aw[n,m,l,p,q] *
 //       bilinear(V_l[n, :, :, m, d], x[n,m,l,p,q] * W_l - 0.5, y[n,m,l,p,q] * H_l - 0.5)
@@ -12,7 +20,7 @@
 // weights and accumulation in float32, output in the value's type.
 //
 // Layouts: value (N, S, M, D) with S = sum_l H_l * W_l, row-major per level;
-// x, y, aw (N, M, L, P, Lq) float32; out (N, Lq, M * D).
+// query parameters float32 as above; out (N, Lq, M * D).
 //
 // What bounds it on an H100.  Each input is read once and the output written
 // once: at the serving shapes (N=5, S=Lq=5100, M=8, D=32, L=P=4, bf16 value)
@@ -25,29 +33,30 @@
 // 32-channel chunks when D > 32).  Each corner read is one coalesced 64-byte
 // (bf16) or 128-byte (f32) row, the (N, S, M, D) storage making a head's D
 // channels contiguous.  The warp's x, y and aw scalars are uniform loads
-// (one address per warp).  Consecutive warps take consecutive queries of
-// the same (n, m), so their scalar loads share cache lines and the level's
-// rows they gather stay hot in L1.  Faster designs (staging the CM
-// parameters in shared memory, several queries per warp, cp.async) are
-// later work.
+// (one address per warp): in the CM layout consecutive warps (consecutive
+// queries of one (n, m)) share their cache lines; in the standard layout one
+// warp's L * P samples are contiguous.  The level's rows a warp gathers stay
+// hot in L1 for its neighbours.  Faster designs (staging the parameters in
+// shared memory, several queries per warp, cp.async) are later work.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
-// with ctypes (ocpg_tpu_torch/ops/_build.py); the wrapper is
-// ocpg_tpu_torch/ops/ms_deform_attn.py::ms_deform_attn_cm.
+// with ctypes (ocpg_tpu_torch/ops/_build.py); the wrappers are
+// ocpg_tpu_torch/ops/ms_deform_attn.py::ms_deform_attn_cm (CM) and
+// ::ms_deform_attn_fast (standard).
 
 #include <stdint.h>
 
 #include "msda_common.cuh"
 
-template <typename scalar_t>
-__global__ void msda_cm_fwd_kernel(const scalar_t* __restrict__ value,
-                                   const float* __restrict__ x_cm,
-                                   const float* __restrict__ y_cm,
-                                   const float* __restrict__ aw_cm,
-                                   scalar_t* __restrict__ out,
-                                   Levels levels, int n_batch, int s_total,
-                                   int n_heads, int dim, int n_levels,
-                                   int n_points, int lq) {
+template <typename scalar_t, typename Layout>
+__global__ void msda_fwd_kernel(const scalar_t* __restrict__ value,
+                                const float* __restrict__ x_ptr,
+                                const float* __restrict__ y_ptr,
+                                const float* __restrict__ aw_ptr,
+                                scalar_t* __restrict__ out,
+                                Levels levels, int n_batch, int s_total,
+                                int n_heads, int dim, int n_levels,
+                                int n_points, int lq) {
   const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x +
                           threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -59,8 +68,8 @@ __global__ void msda_cm_fwd_kernel(const scalar_t* __restrict__ value,
   const int m = static_cast<int>(nm % n_heads);
   const int n = static_cast<int>(nm / n_heads);
 
-  // CM parameters of this (n, m): index ((nm * L + l) * P + p) * Lq + q
-  const long long cm_base = nm * n_levels * n_points * lq + q;
+  const long long p_base = Layout::base(n, m, q, n_heads, n_levels * n_points, lq);
+  const long long p_step = Layout::step(lq);
   const long long row_stride = static_cast<long long>(n_heads) * dim;  // one s step
   const scalar_t* v_nm = value + static_cast<long long>(n) * s_total * row_stride +
                          static_cast<long long>(m) * dim;
@@ -76,10 +85,10 @@ __global__ void msda_cm_fwd_kernel(const scalar_t* __restrict__ value,
       const int w = levels.w[l];
       const scalar_t* v_l = v_nm + static_cast<long long>(levels.start[l]) * row_stride;
       for (int p = 0; p < n_points; ++p) {
-        const long long idx = cm_base + static_cast<long long>(l * n_points + p) * lq;
-        const float a = __ldg(aw_cm + idx);
-        const float xp = __ldg(x_cm + idx) * w - 0.5f;
-        const float yp = __ldg(y_cm + idx) * h - 0.5f;
+        const long long idx = p_base + static_cast<long long>(l * n_points + p) * p_step;
+        const float a = __ldg(aw_ptr + idx);
+        const float xp = __ldg(x_ptr + idx * Layout::kXY) * w - 0.5f;
+        const float yp = __ldg(y_ptr + idx * Layout::kXY) * h - 0.5f;
         // samples wholly outside the map (or NaN) contribute nothing; this
         // also keeps the float -> int casts below in range
         if (!(xp > -1.f && yp > -1.f && xp < w && yp < h)) continue;
@@ -105,15 +114,12 @@ __global__ void msda_cm_fwd_kernel(const scalar_t* __restrict__ value,
   }
 }
 
-extern "C" {
-
-// dtype: 0 = float32 value/output, 1 = bfloat16 value/output.
-// Returns the cudaError_t of the launch (0 on success).
-int msda_cm_fwd(const void* value, const void* x_cm, const void* y_cm,
-                const void* aw_cm, void* out, const int* level_h,
-                const int* level_w, int n_batch, int s_total, int n_heads,
-                int dim, int n_levels, int n_points, int lq, int dtype,
-                void* stream) {
+template <typename Layout>
+static int launch_fwd(const void* value, const float* x, const float* y,
+                      const float* aw, void* out, const int* level_h,
+                      const int* level_w, int n_batch, int s_total, int n_heads,
+                      int dim, int n_levels, int n_points, int lq, int dtype,
+                      void* stream) {
   Levels levels;
   if (!make_levels(&levels, level_h, level_w, n_levels, s_total)) return cudaErrorInvalidValue;
   const long long n_warps = static_cast<long long>(n_batch) * n_heads * lq;
@@ -123,21 +129,47 @@ int msda_cm_fwd(const void* value, const void* x_cm, const void* y_cm,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    msda_cm_fwd_kernel<float><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        static_cast<const float*>(value), static_cast<const float*>(x_cm),
-        static_cast<const float*>(y_cm), static_cast<const float*>(aw_cm),
-        static_cast<float*>(out), levels, n_batch, s_total, n_heads, dim,
-        n_levels, n_points, lq);
+    msda_fwd_kernel<float, Layout><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+        static_cast<const float*>(value), x, y, aw, static_cast<float*>(out), levels,
+        n_batch, s_total, n_heads, dim, n_levels, n_points, lq);
   } else if (dtype == 1) {
-    msda_cm_fwd_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(x_cm),
-        static_cast<const float*>(y_cm), static_cast<const float*>(aw_cm),
-        static_cast<__nv_bfloat16*>(out), levels, n_batch, s_total, n_heads,
-        dim, n_levels, n_points, lq);
+    msda_fwd_kernel<__nv_bfloat16, Layout><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(value), x, y, aw,
+        static_cast<__nv_bfloat16*>(out), levels, n_batch, s_total, n_heads, dim,
+        n_levels, n_points, lq);
   } else {
     return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" {
+
+// dtype: 0 = float32 value/output, 1 = bfloat16 value/output.
+// Each returns the cudaError_t of the launch (0 on success).
+
+// x_cm, y_cm, aw_cm (N, M, L, P, Lq) float32.
+int msda_cm_fwd(const void* value, const void* x_cm, const void* y_cm,
+                const void* aw_cm, void* out, const int* level_h,
+                const int* level_w, int n_batch, int s_total, int n_heads,
+                int dim, int n_levels, int n_points, int lq, int dtype,
+                void* stream) {
+  return launch_fwd<CmLayout>(value, static_cast<const float*>(x_cm),
+                              static_cast<const float*>(y_cm),
+                              static_cast<const float*>(aw_cm), out, level_h, level_w,
+                              n_batch, s_total, n_heads, dim, n_levels, n_points, lq,
+                              dtype, stream);
+}
+
+// locs (N, Lq, M, L, P, 2), attn (N, Lq, M, L, P) float32.
+int msda_std_fwd(const void* value, const void* locs, const void* attn, void* out,
+                 const int* level_h, const int* level_w, int n_batch, int s_total,
+                 int n_heads, int dim, int n_levels, int n_points, int lq, int dtype,
+                 void* stream) {
+  const float* xy = static_cast<const float*>(locs);
+  return launch_fwd<StdLayout>(value, xy, xy + 1, static_cast<const float*>(attn), out,
+                               level_h, level_w, n_batch, s_total, n_heads, dim,
+                               n_levels, n_points, lq, dtype, stream);
 }
 
 }  // extern "C"

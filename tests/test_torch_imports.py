@@ -27,6 +27,7 @@ def test_port_has_the_slice_modules():
                  "models.layers", "models.position_encoding", "models.backbone_resnet",
                  "models.text_encoder", "models.cross_modal", "models.backbone_video_swin",
                  "models.backbone_swin2d", "ops.window_attention",
+                 "ops.ms_deform_attn_variants", "scripts.bench_msda_kernel",
                  "models.deformable_transformer", "models.mask_head", "models.ocpg",
                  "models.build", "models.matcher", "models.criterion", "data.synthetic",
                  "data.transforms", "engine.infer", "engine.optim", "engine.train",
