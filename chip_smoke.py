@@ -20,10 +20,14 @@ exit, no result line) if it goes wrong:
                  the dense-row (K5) and fused-K (K6) forwards at the same
                  calls against the plain gather version; the Swin window
                  attention (K7) at the four Video Swin-B serving calls with
-                 and without the SW-MSA mask, and at a 2D Swin (n = 49) call,
-                 its autograd Function's gradients against autograd through
-                 the plain version.  Each kernel's time, the plain version's,
-                 the bound and, for K7, scaled_dot_product_attention's.
+                 and without the SW-MSA mask, at a 2D Swin (n = 49) call and
+                 at its edges (n = 392, an odd n = 13), its autograd
+                 Function's gradients against autograd through the plain
+                 version.  Each kernel's device time (the launches queue
+                 behind a sleep kernel, so the host's launch rate does not
+                 count), the plain version's, the bound and, for K7,
+                 scaled_dot_product_attention's, with the host's enqueue
+                 time per call beside both.
 3. card       -- the small models on the card (through the kernels) against
                  the same weights on the CPU (through the plain versions),
                  TF32 off: the ResNet eval forward (both branches) and the
@@ -106,6 +110,9 @@ from ocpg_tpu_torch.scripts import bench_msda_kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+# cycles per second of torch.cuda._sleep's spin (an SM clock at or above the
+# card's; a slower clock only lengthens the sleep)
+SLEEP_CYCLES_PER_S = 2.0e9
 # serving path: bucket 384 x 640, clip_len 5, one slot -> levels at strides 8..64
 SERVE_SHAPES = ((48, 80), (24, 40), (12, 20), (6, 10))
 SERVE_N, HEADS, HEAD_DIM, POINTS, QUERIES = 5, 8, 32, 4, 5
@@ -142,17 +149,33 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn() over iters launches, by CUDA events."""
+def cuda_times(fn, iters: int, warmup: int = 3):
+    """(device ms, host ms) per call of fn() over iters calls.  The calls
+    queue up behind a sleep kernel that outlasts the host's enqueueing, so
+    the CUDA events around them time the device, not the rate at which the
+    host launches; the host's enqueue time per call is returned beside it."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * once * iters + 1e-3, 2.0) * SLEEP_CYCLES_PER_S))
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of fn() over iters launches (cuda_times)."""
+    return cuda_times(fn, iters, warmup)[0]
 
 
 # ------------------------------------------------------------------ kernel --
@@ -472,50 +495,60 @@ def swin_call(grid, heads, window=SWIN_WINDOW, frames=SWIN_T):
 
 def wattn_inputs(bw, heads, n, dtype, seed):
     """q (pre-scaled, contiguous), k and v (slices of one qkv tensor, as the
-    Swin module hands them over) and a bias table gather's stand-in."""
+    Swin module hands them over) and a bias table gather's stand-in, all in
+    dtype."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dh = SWIN_HEAD_DIM
     qkv = torch.randn(bw, n, 3, heads, dh, generator=g, device="cuda").to(dtype)
-    bias = torch.randn(heads, n, n, generator=g, device="cuda") * 0.5
+    bias = (torch.randn(heads, n, n, generator=g, device="cuda") * 0.5).to(dtype)
     return qkv[:, :, 0] * dh ** -0.5, qkv[:, :, 1], qkv[:, :, 2], bias
 
 
 def wattn_work(q, mask):
-    """(bytes, flops) of one call: q, k, v, bias and the mask read once in
-    the input's type, the output written once; the two products
-    q.k^T and P.v (2 flops per multiply-add)."""
+    """(bytes, flops, L2 bytes) of one call: q, k, v, bias and the mask
+    read once in the input's type, the output written once; the two
+    products q.k^T and P.v (2 flops per multiply-add); and the bytes of bias
+    and mask that the kernel reads from L2 (every (window, head) reads its
+    n x n of each: the bias once per window, the mask once per head)."""
     bw, n, h, dh = q.shape
     es = q.element_size()
     nbytes = 4 * q.numel() * es + h * n * n * es
     if mask is not None:
         nbytes += mask.numel() * es
-    return nbytes, 4 * bw * h * n * n * dh
+    l2_bytes = bw * h * n * n * es * (1 if mask is None else 2)
+    return nbytes, 4 * bw * h * n * n * dh, l2_bytes
 
 
 def wattn_kernel_checks(results):
-    """K7 at the four Video Swin-B serving calls (n = 245, dh = 32) and a
-    2D Swin call (n = 49), each with the shifted block's SW-MSA mask and
-    without, against the plain version on the same values in float32:
-    within 1e-5 x max |out| for float32 inputs, and within the 2e-2
-    (absolute + relative) bound of tests/test_window_attention_pallas.py for
-    bfloat16 ones.  Then the autograd Function's gradients, and times."""
+    """K7 at the four Video Swin-B serving calls (n = 245, dh = 32), a 2D
+    Swin call (n = 49) and the kernel's edges (the largest window, n = 392,
+    of an 8-frame clip; a small odd n = 13 with 2 heads), each with the
+    shifted block's SW-MSA mask and without, against the plain version on
+    the same values in float32: within 1e-5 x max |out| for float32 inputs,
+    and within the 2e-2 (absolute + relative) bound of
+    tests/test_window_attention_pallas.py for bfloat16 ones.  The mask is
+    handed over in q's type, as the Swin module does.  Then the autograd
+    Function's gradients, and times."""
     import torch.nn.functional as F
 
     calls = [(f"swin-B stage {s}",) + swin_call(SWIN_GRIDS[s], SWIN_HEADS[s])
              for s in range(4)]
     calls.append(("swin2d-B stage 1 (1 frame)",)
                  + swin_call((48, 80), 8, window=(1, 7, 7), frames=1))
+    calls.append(("swin-B stage 1, 8 frames",)
+                 + swin_call(SWIN_GRIDS[1], SWIN_HEADS[1], frames=8))
+    calls.append(("odd window 1x1x13",) + swin_call((2, 26), 2, window=(1, 1, 13), frames=1))
     report = {}
     for name, bw, heads, n, mask_np in calls:
         for masked in (True, False):
-            mask = torch.from_numpy(mask_np).cuda() if masked else None
             label = f"{name} bw={bw} h={heads} n={n}{' masked' if masked else ''}"
             for dtype in (torch.float32, torch.bfloat16):
+                mask = torch.from_numpy(mask_np).cuda().to(dtype) if masked else None
                 q, k, v, bias = wattn_inputs(bw, heads, n, dtype, seed=11)
                 got = wattn.window_attention(q, k, v, bias, mask).float()
                 torch.cuda.synchronize()
                 want = wattn.window_attention_reference(q.float(), k.float(), v.float(),
-                                                        bias.to(dtype).float(), mask)
+                                                        bias.float(), mask)
                 err = (got - want).abs().max().item()
                 scale = want.abs().max().item()
                 if dtype == torch.float32:
@@ -527,30 +560,36 @@ def wattn_kernel_checks(results):
                       f"K7 {label} {dtype}: max |kernel - plain| {err} (limit {limit})")
                 log(f"kernel wattn {label} {str(dtype)[6:]}: max_abs_err {err:.3e} "
                     f"(limit {limit})")
-            # times in bf16, the serving type: the kernel, the plain version,
-            # and scaled_dot_product_attention with bias + mask as its
-            # attn_mask, built outside the timed calls
+            # times in bf16, the serving type: the kernel alone (bias and
+            # mask already in q's type), the plain version, and
+            # scaled_dot_product_attention with bias + mask as its attn_mask,
+            # built outside the timed calls
             qt, kt, vt = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-            attn_mask = bias.to(q.dtype)[None].expand(bw, -1, -1, -1)
+            attn_mask = bias[None].expand(bw, -1, -1, -1)
             if mask is not None:
-                attn_mask = (attn_mask + mask.to(q.dtype)[:, None]).contiguous()
+                attn_mask = (attn_mask + mask[:, None]).contiguous()
             lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask, scale=1.0)
             lib_err = ((lib.permute(0, 2, 1, 3).float() - want).abs()
                        - 2e-2 * want.abs()).max().item()
             check(lib_err <= 2e-2, f"K7 {label}: scaled_dot_product_attention disagrees "
                                    f"with the plain version ({lib_err})")
-            ms = cuda_ms(lambda: wattn.window_attention(q, k, v, bias, mask), 20)
+            ms, host_ms = cuda_times(lambda: wattn.window_attention(q, k, v, bias, mask), 20)
             plain_ms = cuda_ms(lambda: wattn.window_attention_reference(q, k, v, bias, mask), 5)
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            library_ms, library_host_ms = cuda_times(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=attn_mask, scale=1.0), 20)
-            nbytes, flops = wattn_work(q, mask)
+            nbytes, flops, l2_bytes = wattn_work(q, mask)
             bound_ms, bound_by = timed_bound(nbytes, flops, BF16_FLOPS_PER_S)
+            tflops = flops / (ms * 1e-3) / 1e12
             log(f"kernel wattn {label} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
-                f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); {tflops:.2f} TFLOP/s; "
+                f"bias + mask {l2_bytes / 1e6:.1f} MB from L2 = "
+                f"{l2_bytes / (ms * 1e-3) / 1e12:.2f} TB/s; host enqueue per call "
+                f"{host_ms:.4f} ms (sdpa {library_host_ms:.4f})")
             report[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                                 tflops=tflops, bias_mask_l2_mb=l2_bytes / 1e6,
+                                 host_ms=host_ms, library_host_ms=library_host_ms)
             del q, k, v, bias, qt, kt, vt, attn_mask, lib, got, want
 
     # the Function's gradients (plain recompute, as the JAX custom VJP)

@@ -26,18 +26,27 @@
 // once: at the serving shapes (N=5, S=Lq=5100, M=8, D=32, L=P=4, bf16 value)
 // that is about 65 MB, ~19.5 us at 3.35 TB/s.  The gathers, though, touch
 // 4 corners x L x P = 64 rows of D channels per (n, m, q): about 0.84 GB of
-// 64-byte rows through L1/L2.  The value (13 MB) fits in the 50 MB L2, so the
-// real limit is L2/L1 gather throughput rather than HBM.
+// 64-byte rows through L1/L2.  The value (13 MB) stays in the 50 MB L2, so
+// the real limit is L1/L2 gather throughput, in bytes and in load
+// instructions, rather than HBM.
 //
-// Design.  One warp per (n, m, q), lanes over the D channels (a loop over
-// 32-channel chunks when D > 32).  Each corner read is one coalesced 64-byte
-// (bf16) or 128-byte (f32) row, the (N, S, M, D) storage making a head's D
-// channels contiguous.  The warp's x, y and aw scalars are uniform loads
-// (one address per warp): in the CM layout consecutive warps (consecutive
-// queries of one (n, m)) share their cache lines; in the standard layout one
-// warp's L * P samples are contiguous.  The level's rows a warp gathers stay
-// hot in L1 for its neighbours.  Faster designs (staging the parameters in
-// shared memory, several queries per warp, cp.async) are later work.
+// Design.  A thread owns 16 bytes of channels (8 bf16 or 4 float32) of one
+// (n, m, q): a corner row of D = 32 is 4 threads (bf16) or 8 (float32)
+// wide, and a warp covers 8 (or 4) consecutive queries of one (n, m).  Each
+// gather is one 16-byte load per thread, 512 bytes of 8 distinct rows per
+// warp instruction, and the output is written with 16-byte stores into the
+// contiguous (N, Lq, M * D) row.  A block of 256 threads takes
+// 256 / (D / 8) consecutive queries of one (n, m) (64 at D = 32, bf16) and
+// first stages their x, y and aw for all L * P samples in shared memory
+// with coalesced loads (in the CM layout, 64 contiguous floats per sample;
+// in the standard layout, each query's contiguous L * P * 3 floats).  Per
+// sample, a thread then computes the bilinear weights, issues its four
+// corner loads together (predicated, no branch between them) and sums them
+// in (l, p, corner) order.  Gathers in flight come from occupancy: at most
+// 40 registers a thread let 6 blocks (48 warps) share an SM; timed on the
+// card, that beat issuing the 16 loads of four points together with the
+// registers that takes (2 blocks per SM).  D must be a multiple of 8
+// (bf16) or 4 (float32) and the value 16-byte aligned (the wrappers check).
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (ocpg_tpu_torch/ops/_build.py); the wrappers are
@@ -48,70 +57,167 @@
 
 #include "msda_common.cuh"
 
+#define MSDA_FWD_THREADS 256
+#define MSDA_FWD_MIN_BLOCKS 6    // per SM: 48 warps, at most 40 registers a thread
+
+// 16 bytes of channels: 4 float32 or 8 bf16, unpacked to and packed from
+// float32.
+template <typename scalar_t>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  __device__ static void unpack(const uint4& u, float (&f)[kN]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ static uint4 pack(const float (&f)[kN]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(const uint4& u, float (&f)[kN]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+  __device__ static uint4 pack(const float (&f)[kN]) {
+    return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                      pack_bf16(f[6], f[7]));
+  }
+};
+
 template <typename scalar_t, typename Layout>
-__global__ void msda_fwd_kernel(const scalar_t* __restrict__ value,
-                                const float* __restrict__ x_ptr,
-                                const float* __restrict__ y_ptr,
-                                const float* __restrict__ aw_ptr,
-                                scalar_t* __restrict__ out,
-                                Levels levels, int n_batch, int s_total,
-                                int n_heads, int dim, int n_levels,
-                                int n_points, int lq) {
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x +
-                          threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long n_warps = static_cast<long long>(n_batch) * n_heads * lq;
-  if (warp >= n_warps) return;
+__global__ void __launch_bounds__(MSDA_FWD_THREADS, MSDA_FWD_MIN_BLOCKS)
+msda_fwd_kernel(const scalar_t* __restrict__ value, const float* __restrict__ x_ptr,
+                const float* __restrict__ y_ptr, const float* __restrict__ aw_ptr,
+                scalar_t* __restrict__ out, Levels levels, int s_total, int n_heads,
+                int dim, int n_levels, int n_points, int lq, int q_block, int q_tiles) {
+  using V = Vec16<scalar_t>;
+  // x, y, aw: (L * P, q_block) each, row stride q_block + 1 so that the
+  // standard layout's staging (threads over samples) is free of bank conflicts
+  extern __shared__ float sparam[];
+  const int lp = n_levels * n_points;
+  const int ld = q_block + 1;
+  float* sx = sparam;
+  float* sy = sx + lp * ld;
+  float* sa = sy + lp * ld;
 
-  const int q = static_cast<int>(warp % lq);
-  const long long nm = warp / lq;          // n * M + m
-  const int m = static_cast<int>(nm % n_heads);
-  const int n = static_cast<int>(nm / n_heads);
+  const int nm = blockIdx.x / q_tiles;            // n * M + m
+  const int q0 = (blockIdx.x - nm * q_tiles) * q_block;
+  const int m = nm % n_heads;
+  const int n = nm / n_heads;
+  for (int e = threadIdx.x; e < q_block * lp; e += blockDim.x) {
+    int s, qi;
+    if (Layout::kSampleMajor) {
+      qi = e / lp;
+      s = e - qi * lp;
+    } else {
+      s = e / q_block;
+      qi = e - s * q_block;
+    }
+    if (q0 + qi >= lq) continue;
+    const long long idx = Layout::base(n, m, q0 + qi, n_heads, lp, lq) +
+                          static_cast<long long>(s) * Layout::step(lq);
+    sx[s * ld + qi] = __ldg(x_ptr + idx * Layout::kXY);
+    sy[s * ld + qi] = __ldg(y_ptr + idx * Layout::kXY);
+    sa[s * ld + qi] = __ldg(aw_ptr + idx);
+  }
+  __syncthreads();
 
-  const long long p_base = Layout::base(n, m, q, n_heads, n_levels * n_points, lq);
-  const long long p_step = Layout::step(lq);
+  const int chunks = dim / V::kN;                 // 16-byte chunks per head row
+  const int qi = threadIdx.x / chunks;
+  const int q = q0 + qi;
+  if (qi >= q_block || q >= lq) return;
+  const int ch = (threadIdx.x - qi * chunks) * V::kN;
   const long long row_stride = static_cast<long long>(n_heads) * dim;  // one s step
   const scalar_t* v_nm = value + static_cast<long long>(n) * s_total * row_stride +
-                         static_cast<long long>(m) * dim;
-  scalar_t* o = out + (static_cast<long long>(n) * lq + q) * row_stride +
-                static_cast<long long>(m) * dim;
+                         static_cast<long long>(m) * dim + ch;
 
-  for (int d0 = 0; d0 < dim; d0 += 32) {
-    const int d = d0 + lane;
-    const bool active = d < dim;
-    float acc = 0.f;
-    for (int l = 0; l < n_levels; ++l) {
-      const int h = levels.h[l];
-      const int w = levels.w[l];
-      const scalar_t* v_l = v_nm + static_cast<long long>(levels.start[l]) * row_stride;
-      for (int p = 0; p < n_points; ++p) {
-        const long long idx = p_base + static_cast<long long>(l * n_points + p) * p_step;
-        const float a = __ldg(aw_ptr + idx);
-        const float xp = __ldg(x_ptr + idx * Layout::kXY) * w - 0.5f;
-        const float yp = __ldg(y_ptr + idx * Layout::kXY) * h - 0.5f;
-        // samples wholly outside the map (or NaN) contribute nothing; this
-        // also keeps the float -> int casts below in range
-        if (!(xp > -1.f && yp > -1.f && xp < w && yp < h)) continue;
-        const float xf = floorf(xp);
-        const float yf = floorf(yp);
-        const float dx = xp - xf;
-        const float dy = yp - yf;
-        const int x0 = static_cast<int>(xf);
-        const int y0 = static_cast<int>(yf);
-        const float wts[4] = {(1.f - dx) * (1.f - dy), dx * (1.f - dy),
-                              (1.f - dx) * dy, dx * dy};
+  float acc[V::kN];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int cx = x0 + (c & 1);
-          const int cy = y0 + (c >> 1);
-          if (cx < 0 || cx > w - 1 || cy < 0 || cy > h - 1 || !active) continue;
-          const float v = to_float(v_l[static_cast<long long>(cy * w + cx) * row_stride + d]);
-          acc += a * wts[c] * v;
-        }
+  for (int i = 0; i < V::kN; ++i) acc[i] = 0.f;
+  for (int l = 0; l < n_levels; ++l) {
+    const int h = levels.h[l];
+    const int w = levels.w[l];
+    const scalar_t* v_l = v_nm + static_cast<long long>(levels.start[l]) * row_stride;
+    for (int p = 0; p < n_points; ++p) {
+      const int sq = (l * n_points + p) * ld + qi;
+      const float a = sa[sq];
+      const float xp = __fsub_rn(__fmul_rn(sx[sq], static_cast<float>(w)), 0.5f);
+      const float yp = __fsub_rn(__fmul_rn(sy[sq], static_cast<float>(h)), 0.5f);
+      // samples wholly outside the map (or NaN) contribute nothing; this
+      // also keeps the float -> int casts below in range
+      const bool valid = xp > -1.f && yp > -1.f && xp < w && yp < h;
+      const float xf = valid ? floorf(xp) : 0.f;
+      const float yf = valid ? floorf(yp) : 0.f;
+      const float dx = xp - xf;
+      const float dy = yp - yf;
+      const int x0 = static_cast<int>(xf);
+      const int y0 = static_cast<int>(yf);
+      const float wts[4] = {(1.f - dx) * (1.f - dy), dx * (1.f - dy),
+                            (1.f - dx) * dy, dx * dy};
+      // the four corner rows (-1: outside the map), loaded together
+      int row[4];
+      uint4 raw[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int cx = x0 + (c & 1);
+        const int cy = y0 + (c >> 1);
+        row[c] = valid && cx >= 0 && cx <= w - 1 && cy >= 0 && cy <= h - 1 ? cy * w + cx : -1;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        raw[c] = row[c] >= 0 ? __ldg(reinterpret_cast<const uint4*>(v_l + row[c] * row_stride))
+                             : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (row[c] < 0) continue;
+        float v[V::kN];
+        V::unpack(raw[c], v);
+#pragma unroll
+        for (int i = 0; i < V::kN; ++i) acc[i] += a * wts[c] * v[i];
       }
     }
-    if (active) store(o + d, acc);
   }
+  *reinterpret_cast<uint4*>(out + (static_cast<long long>(n) * lq + q) * row_stride +
+                            static_cast<long long>(m) * dim + ch) = V::pack(acc);
+}
+
+template <typename scalar_t, typename Layout>
+static int launch_typed(const void* value, const float* x, const float* y, const float* aw,
+                        void* out, const Levels& levels, int n_batch, int s_total,
+                        int n_heads, int dim, int n_levels, int n_points, int lq,
+                        cudaStream_t s) {
+  constexpr int vec = Vec16<scalar_t>::kN;
+  if (dim % vec != 0 || dim / vec > MSDA_FWD_THREADS ||
+      (reinterpret_cast<uintptr_t>(value) & 15u) != 0)
+    return cudaErrorInvalidValue;
+  const int chunks = dim / vec;
+  const int lp = n_levels * n_points;
+  int q_block = MSDA_FWD_THREADS / chunks;
+  while (q_block > 1 && 3 * sizeof(float) * lp * (q_block + 1) > 48 * 1024) q_block /= 2;
+  const size_t smem = 3 * sizeof(float) * lp * (q_block + 1);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const int q_tiles = (lq + q_block - 1) / q_block;
+  const long long blocks = static_cast<long long>(n_batch) * n_heads * q_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  msda_fwd_kernel<scalar_t, Layout><<<static_cast<unsigned>(blocks), q_block * chunks, smem,
+                                      s>>>(
+      static_cast<const scalar_t*>(value), x, y, aw, static_cast<scalar_t*>(out), levels,
+      s_total, n_heads, dim, n_levels, n_points, lq, q_block, q_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Layout>
@@ -122,25 +228,16 @@ static int launch_fwd(const void* value, const float* x, const float* y,
                       void* stream) {
   Levels levels;
   if (!make_levels(&levels, level_h, level_w, n_levels, s_total)) return cudaErrorInvalidValue;
-  const long long n_warps = static_cast<long long>(n_batch) * n_heads * lq;
-  if (n_warps == 0) return cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (n_warps * 32 + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (static_cast<long long>(n_batch) * n_heads * lq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    msda_fwd_kernel<float, Layout><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        static_cast<const float*>(value), x, y, aw, static_cast<float*>(out), levels,
-        n_batch, s_total, n_heads, dim, n_levels, n_points, lq);
-  } else if (dtype == 1) {
-    msda_fwd_kernel<__nv_bfloat16, Layout><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(value), x, y, aw,
-        static_cast<__nv_bfloat16*>(out), levels, n_batch, s_total, n_heads, dim,
-        n_levels, n_points, lq);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch_typed<float, Layout>(value, x, y, aw, out, levels, n_batch, s_total,
+                                       n_heads, dim, n_levels, n_points, lq, s);
+  if (dtype == 1)
+    return launch_typed<__nv_bfloat16, Layout>(value, x, y, aw, out, levels, n_batch,
+                                               s_total, n_heads, dim, n_levels, n_points,
+                                               lq, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" {

@@ -140,6 +140,20 @@ def _check_cuda(value, named):
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
+def _check_fwd_vectors(value):
+    """The forward kernel (K1, K3) moves 16 bytes of channels per load: D a
+    multiple of 8 (bfloat16) or 4 (float32), at most 256 such loads per
+    head row, and the value 16-byte aligned."""
+    d = value.shape[3]
+    vec = 8 if value.dtype == torch.bfloat16 else 4
+    if d % vec or d // vec > 256:
+        raise ValueError(f"MSDA forward kernel takes D a multiple of {vec} and at most "
+                         f"{256 * vec} for {value.dtype}, got D={d}")
+    if value.data_ptr() % 16:
+        raise ValueError(f"MSDA forward kernel takes a 16-byte aligned value, got "
+                         f"{value.data_ptr():#x}")
+
+
 def _call(fn, name, value, spatial_shapes, p, lq, pointers):
     n, s, m, d = value.shape
     nl = len(spatial_shapes)
@@ -156,6 +170,7 @@ def _call(fn, name, value, spatial_shapes, p, lq, pointers):
 def _launch(value, spatial_shapes, x_cm, y_cm, aw_cm):
     global launches
     f32 = torch.float32
+    _check_fwd_vectors(value)
     _check_cuda(value, (("value", value, value.dtype), ("x_cm", x_cm, f32),
                         ("y_cm", y_cm, f32), ("aw_cm", aw_cm, f32)))
     n, _, m, d = value.shape
@@ -329,6 +344,7 @@ def _check_std(value, spatial_shapes, locs, attn):
 def _launch_std(value, spatial_shapes, locs, attn):
     global std_launches
     f32 = torch.float32
+    _check_fwd_vectors(value)
     _check_cuda(value, (("value", value, value.dtype), ("locs", locs, f32),
                         ("attn", attn, f32)))
     n, lq, m = locs.shape[:3]

@@ -22,7 +22,10 @@ bias ``(heads, n, n)``; mask ``(nW, n, n)`` or None, applied to window
 Output ``(bw, n, heads, dh)`` in q's type.  The kernel takes n <= 392 (the
 largest window, 8 x 7 x 7) and dh <= 64 (every Swin has dh = 32), float32
 or bfloat16, and q, k, v whose (heads, dh) part is packed; k and v may be
-the slices of the qkv projection's ``(bw, n, 3, heads, dh)`` output.
+the slices of the qkv projection's ``(bw, n, 3, heads, dh)`` output.  Its
+bfloat16 body (tensor cores, 16-byte loads) also takes dh a multiple of 8
+and q, k, v 16-byte aligned with strides that are multiples of 8 elements;
+its float32 body computes in exact float32.
 """
 
 from __future__ import annotations
@@ -102,6 +105,15 @@ def _launch(q, k, v, bias, mask):
     if n > MAX_N or dh > MAX_HEAD_DIM:
         raise ValueError(f"window-attention kernel takes n <= {MAX_N} and dh <= "
                          f"{MAX_HEAD_DIM}, got n={n}, dh={dh}")
+    if q.dtype == torch.bfloat16:
+        if dh % 8:
+            raise ValueError(f"the bfloat16 window-attention kernel takes dh a multiple "
+                             f"of 8, got {dh}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+                raise ValueError(f"the bfloat16 window-attention kernel takes 16-byte "
+                                 f"aligned rows: {name} at {t.data_ptr():#x}, strides "
+                                 f"{t.stride()}")
     named = [("q", q), ("k", k), ("v", v), ("bias", bias)]
     if mask is not None:
         named.append(("mask", mask))

@@ -148,6 +148,30 @@ def test_dispatcher_raises_instead_of_falling_back():
         ms_deform_attn_cm(value, (), x, y, aw)
 
 
+@pytest.mark.parametrize("entry,dtype,d,offset,match", [
+    ("cm", torch.bfloat16, 12, 0, "multiple of 8"),
+    ("cm", torch.float32, 6, 0, "multiple of 4"),
+    ("cm", torch.bfloat16, 16, 1, "16-byte aligned"),
+    ("cm", torch.float32, 8, 0, "is on cpu"),
+    ("std", torch.bfloat16, 12, 0, "multiple of 8"),
+    ("std", torch.float32, 8, 1, "16-byte aligned"),
+])
+def test_forward_kernel_rules_are_checked_before_launch(entry, dtype, d, offset, match):
+    """The forward kernel (K1 and its standard-layout entry K3) gathers 16
+    bytes of channels a thread: D a multiple of 8 (bf16) or 4 (float32),
+    and a 16-byte aligned value; a value that keeps both rules reaches the
+    device checks."""
+    shapes = LEVEL_SETS["two_levels"]
+    value, x, y, aw = (torch.from_numpy(a) for a in _inputs(shapes, seed=8, d=d))
+    flat = torch.zeros(value.numel() + offset, dtype=dtype)
+    value = flat[offset:].view(value.shape)
+    with pytest.raises(ValueError, match=match):
+        if entry == "cm":
+            port_msda._launch(value, shapes, x, y, aw)
+        else:
+            port_msda._launch_std(value, shapes, *port_msda._cm_to_standard(x, y, aw))
+
+
 # ------------------------------------------------------------- backward --
 def _jax_grads(value, shapes, x, y, aw, g):
     """jax.grad of <ms_deform_attn(value, ...), g> through the gather path,

@@ -108,3 +108,43 @@ def test_shapes_and_kernel_limits_are_checked():
     # a CPU tensor never reaches the kernel
     with pytest.raises(ValueError, match="is on cpu"):
         wattn._launch(q, k, v, bias, mask)
+
+
+def test_plain_matches_interpreted_pallas_at_the_swin_b_stage0_call():
+    """The serving call's own shape: n = 245 (the (8, 7, 7) window clamped
+    to a 5-frame clip), dh = 32, 4 heads, with the real SW-MSA mask of the
+    stage-0 grid (96 x 160) of a shifted block: its first two windows (all
+    one region) and the first two that straddle regions."""
+    from ocpg_tpu.models.backbone_video_swin import _get_window_size, _sw_attn_mask
+
+    ws, ss = _get_window_size((5, 96, 160), (8, 7, 7), (4, 3, 3))
+    full = _sw_attn_mask(5, 98, 161, ws, ss)              # grid padded to the window
+    n = ws[0] * ws[1] * ws[2]
+    straddling = np.flatnonzero((full != 0).any(axis=(1, 2)))[:2]
+    mask = full[np.concatenate([[0, 1], straddling])]
+    assert n == 245 and mask.shape == (4, n, n) and (mask[2:] == -100.0).any()
+    rng = np.random.default_rng(5)
+    bw, h, dh = 4, 4, 32
+    q = (rng.standard_normal((bw, n, h, dh)) * dh ** -0.5).astype(np.float32)
+    k, v = (rng.standard_normal((2, bw, n, h, dh))).astype(np.float32)
+    bias = (rng.standard_normal((h, n, n)) * 0.5).astype(np.float32)
+    want = window_attention_fused(*_jax(q, k, v, bias, mask), True)
+    got = wattn.window_attention_reference(*_torch(q, k, v, bias, mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2, atol=2e-2)
+
+
+def test_bfloat16_kernel_rules_are_checked_before_launch():
+    """The bfloat16 kernel loads 16 bytes a thread: dh a multiple of 8, and
+    q, k, v 16-byte aligned with strides that are multiples of 8."""
+    q = torch.zeros(2, 13, 2, 12, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        wattn._launch(q, q, q, torch.zeros(2, 13, 13, dtype=torch.bfloat16), None)
+    flat = torch.zeros(2 * 13 * 2 * 8 + 1, dtype=torch.bfloat16)
+    q = flat[:-1].view(2, 13, 2, 8)
+    shifted = flat[1:].view(2, 13, 2, 8)               # 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned rows: k"):
+        wattn._launch(q, shifted, q, torch.zeros(2, 13, 13, dtype=torch.bfloat16), None)
+    # float32 inputs take the exact float32 body, which has neither rule
+    q32 = torch.zeros(2, 13, 2, 12)
+    with pytest.raises(ValueError, match="is on cpu"):
+        wattn._launch(q32, q32, q32, torch.zeros(2, 13, 13), None)
