@@ -13,13 +13,19 @@ exit, no result line) if it goes wrong:
                  in float32 and bfloat16: the MSDA forward (K1) at the
                  serving, A2D and train calls, with samples outside the map,
                  on integer pixel coordinates (xp = -1 among them) and at
-                 NaN/inf coordinates; its backward (K2) at the train calls
-                 against autograd through the plain version; their
-                 standard-layout entries (K3, K4) at the serving and train
-                 encoder calls, on the same samples in the standard layout;
-                 the dense-row (K5) and fused-K (K6) forwards at the same
-                 calls against the plain gather version; the Swin window
-                 attention (K7) at the four Video Swin-B serving calls with
+                 NaN/inf coordinates; its backward (K2) at the serving and
+                 train calls (encoder and decoder, Lq = 5) against autograd
+                 through the plain version; at the serving and train encoder
+                 calls both also on clustered samples (each query within
+                 +-2 pixels of its reference point, as a trained encoder
+                 samples); their standard-layout entries (K3 at the encoder
+                 calls, K4 at K2's calls) on the same samples in the
+                 standard layout; the dense-row (K5) and fused-K (K6)
+                 forwards at the encoder calls against the plain gather
+                 version; the memory-fusion bicubic resize (two bf16
+                 products) against the CPU, forward and gradient, timed
+                 beside F.interpolate's bicubic at the train call; the Swin
+                 window attention (K7) at the four Video Swin-B serving calls with
                  and without the SW-MSA mask, at a 2D Swin (n = 49) call and
                  at its edges (n = 392, an odd n = 13), its autograd
                  Function's gradients against autograd through the plain
@@ -100,10 +106,15 @@ from ocpg_tpu_torch.models import backbone_video_swin as video_swin
 from ocpg_tpu_torch.models.build import build_model, build_weight_dict, criterion_config
 from ocpg_tpu_torch.models.text_encoder import SimpleTokenizer
 from ocpg_tpu_torch.ops import _build
+from ocpg_tpu_torch.ops import image
 from ocpg_tpu_torch.ops import ms_deform_attn as msda
 from ocpg_tpu_torch.ops import ms_deform_attn_variants as msda_var
 from ocpg_tpu_torch.ops import window_attention as wattn
 from ocpg_tpu_torch.scripts import bench_msda_kernel
+# the model's MSDA (M, D, P), the train path's levels and frames, and the
+# seeded MSDA inputs (uniform or clustered samples)
+from ocpg_tpu_torch.scripts.bench_msda_bwd import (HEAD_DIM, HEADS, POINTS, TRAIN_N,
+                                                   TRAIN_SHAPES, msda_inputs)
 
 # H100 SXM (NVIDIA's data sheet): HBM rate, float32 rate outside the tensor
 # cores, dense bf16 tensor-core rate
@@ -115,10 +126,7 @@ BF16_FLOPS_PER_S = 989e12
 SLEEP_CYCLES_PER_S = 2.0e9
 # serving path: bucket 384 x 640, clip_len 5, one slot -> levels at strides 8..64
 SERVE_SHAPES = ((48, 80), (24, 40), (12, 20), (6, 10))
-SERVE_N, HEADS, HEAD_DIM, POINTS, QUERIES = 5, 8, 32, 4, 5
-# train path: B=1 clip of T=3 frames at 512 x 640 -> levels at strides 8..64
-TRAIN_SHAPES = ((64, 80), (32, 40), (16, 20), (8, 10))
-TRAIN_N = 3
+SERVE_N, QUERIES = 5, 5
 # Swin-B serving path (video_swin_b_p4w7, one 5 x 384 x 640 clip): the token
 # grid and heads of each stage; the (8, 7, 7) window clamps to T = 5, n = 245
 SWIN_T, SWIN_WINDOW, SWIN_HEAD_DIM = 5, (8, 7, 7), 32
@@ -179,29 +187,6 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 # ------------------------------------------------------------------ kernel --
-def msda_inputs(shapes, n, lq, dtype, seed):
-    """MSDA inputs on the card: locations in [-0.1, 1.1] (some outside the
-    map), a quarter of the points on integer pixel coordinates, and some
-    samples at NaN or inf coordinates (a wholly padded frame has valid ratio
-    0, so the serving path gives the kernel NaN reference points)."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    s = sum(h * w for h, w in shapes)
-    l = len(shapes)
-    dev = "cuda"
-    value = torch.randn(n, s, HEADS, HEAD_DIM, generator=g, device=dev).to(dtype)
-    x = torch.rand(n, HEADS, l, POINTS, lq, generator=g, device=dev) * 1.2 - 0.1
-    y = torch.rand(n, HEADS, l, POINTS, lq, generator=g, device=dev) * 1.2 - 0.1
-    for lid, (h, w) in enumerate(shapes):
-        kx = torch.randint(-1, w + 1, (n, HEADS, lq), generator=g, device=dev)
-        ky = torch.randint(-1, h + 1, (n, HEADS, lq), generator=g, device=dev)
-        x[:, :, lid, 0] = (kx + 0.5) / w
-        y[:, :, lid, 0] = (ky + 0.5) / h
-    x[:, :, :, 1, ::7] = float("nan")
-    y[:, :, -1, 2, 3::11] = float("inf")
-    aw = torch.softmax(torch.randn(n, HEADS, l * POINTS, lq, generator=g, device=dev), 2)
-    return value, x.contiguous(), y.contiguous(), aw.reshape(x.shape).contiguous()
-
-
 def in_map_corners(shapes, x, y):
     """How many bilinear corners of these samples fall inside their map."""
     corners = 0
@@ -260,7 +245,9 @@ def timed_bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
 def phase_kernel(results):
     """K1 at the calls the main paths make: the serving encoder and decoder
     (N = clip_len frames), the A2D ones (valid_indices leaves N = 1) and the
-    train ones (N = B x T = 3 frames at 512 x 640); K2 at the train calls."""
+    train ones (N = B x T = 3 frames at 512 x 640); K2 at the serving and
+    train calls.  The serving and train encoder calls run on uniform and on
+    clustered samples (msda_inputs)."""
     lq_serve = sum(h * w for h, w in SERVE_SHAPES)
     lq_train = sum(h * w for h, w in TRAIN_SHAPES)
     calls = (("serve encoder", SERVE_SHAPES, SERVE_N, lq_serve),
@@ -271,80 +258,89 @@ def phase_kernel(results):
              ("train decoder", TRAIN_SHAPES, TRAIN_N, QUERIES))
     report = {}
     for name, shapes, n, lq in calls:
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            value, x, y, aw = msda_inputs(shapes, n, lq, dtype, seed=7)
-            got = msda.ms_deform_attn_cm(value, shapes, x, y, aw)
-            torch.cuda.synchronize()
-            want = msda.ms_deform_attn_cm_reference(value.float(), shapes, x, y, aw)
-            check(bool(torch.isfinite(want).all()), f"MSDA {name}: plain version not finite")
-            err = (got.float() - want).abs().max().item()
-            scale = want.abs().max().item()
-            check(math.isfinite(err) and err <= tol * scale,
-                  f"MSDA {name} {dtype}: max |kernel - plain| {err} > "
-                  f"{tol} x max |out| {scale}")
-            log(f"kernel msda {name} N={n} Lq={lq} {str(dtype)[6:]}: max_abs_err "
-                f"{err:.3e} (limit {tol} x {scale:.3f})")
-            if dtype == torch.bfloat16:
-                ms = cuda_ms(lambda: msda.ms_deform_attn_cm(value, shapes, x, y, aw), 50)
-                plain_ms = cuda_ms(lambda: msda.ms_deform_attn_cm_reference(
-                    value, shapes, x, y, aw), 10)
-                nbytes, flops = msda_work(shapes, value, x, y, aw)
-                bound_ms, bound_by = timed_bound(nbytes, flops)
-                gather_bytes = x.numel() * 4 * HEAD_DIM * value.element_size()
-                log(f"kernel msda {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-                    f"{flops / 1e9:.3f} GFLOP f32); corner gathers "
-                    f"{gather_bytes / 1e9:.3f} GB = "
-                    f"{gather_bytes / (ms * 1e-3) / 1e12:.2f} TB/s through L2/L1")
-                report[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, max_abs_err=err)
-            if not name.startswith("train"):
-                continue
-            # K2 at the same call: each gradient against autograd through
-            # the plain version, within tol x its own max |.|.  The order of
-            # d_value's atomic sums changes from run to run.
-            g = torch.randn(n, lq, HEADS * HEAD_DIM, generator=torch.Generator(
-                device="cuda").manual_seed(9), device="cuda").to(dtype)
-            got = msda.ms_deform_attn_cm_backward(value, shapes, x, y, aw, g)
-            torch.cuda.synchronize()
-            want = msda.ms_deform_attn_cm_grad_reference(value.float(), shapes, x, y, aw,
-                                                         g.float())
-            errs = []
-            for gname, a, b in zip(("d_value", "d_x", "d_y", "d_aw"), got, want):
-                check(a.dtype == (dtype if gname == "d_value" else torch.float32),
-                      f"K2 {gname} dtype {a.dtype}")
-                check(bool(torch.isfinite(b).all()), f"K2 {name}: plain {gname} not finite")
-                e = (a.float() - b).abs().max().item()
-                sc = b.abs().max().item()
-                check(math.isfinite(e) and e <= tol * sc,
-                      f"K2 {name} {dtype} {gname}: max |kernel - plain| {e} > "
-                      f"{tol} x max |grad| {sc}")
-                errs.append(e)
-                log(f"kernel msda_bwd {name} N={n} Lq={lq} {str(dtype)[6:]} {gname}: "
-                    f"max_abs_err {e:.3e} (limit {tol} x {sc:.4g})")
-            if dtype == torch.bfloat16:
-                ms = cuda_ms(lambda: msda.ms_deform_attn_cm_backward(
-                    value, shapes, x, y, aw, g), 20)
-                # the plain backward alone: autograd through a graph of the
-                # plain forward built once, outside the timed calls
-                inputs = [t.detach().requires_grad_() for t in (value, x, y, aw)]
-                with torch.enable_grad():
-                    out = msda.ms_deform_attn_cm_reference(inputs[0], shapes, *inputs[1:])
-                plain_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, g,
-                                                               retain_graph=True), 5)
-                del inputs, out
-                nbytes, flops = msda_bwd_work(shapes, value, x, y, aw)
-                bound_ms, bound_by = timed_bound(nbytes, flops)
-                log(f"kernel msda_bwd {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-                    f"{flops / 1e9:.3f} GFLOP f32)")
-                report[f"bwd {name}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                             bound_by=bound_by, max_abs_err=max(errs))
+        with_bwd = not name.startswith("a2d")
+        kinds = (False, True) if with_bwd and name.endswith("encoder") else (False,)
+        for clustered in kinds:
+            tag = f"{name} clustered" if clustered else name
+            for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+                value, x, y, aw = msda_inputs(shapes, n, lq, dtype, seed=7, clustered=clustered)
+                got = msda.ms_deform_attn_cm(value, shapes, x, y, aw)
+                torch.cuda.synchronize()
+                want = msda.ms_deform_attn_cm_reference(value.float(), shapes, x, y, aw)
+                label = f"{tag} N={n} Lq={lq} {str(dtype)[6:]}"
+                err = held(f"K1 msda {label}", got, want, tol)
+                if dtype == torch.bfloat16:
+                    ms = cuda_ms(lambda: msda.ms_deform_attn_cm(value, shapes, x, y, aw), 50)
+                    plain_ms = cuda_ms(lambda: msda.ms_deform_attn_cm_reference(
+                        value, shapes, x, y, aw), 10)
+                    nbytes, flops = msda_work(shapes, value, x, y, aw)
+                    bound_ms, bound_by = timed_bound(nbytes, flops)
+                    gather_bytes = x.numel() * 4 * HEAD_DIM * value.element_size()
+                    log(f"kernel msda {tag} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+                        f"{flops / 1e9:.3f} GFLOP f32); corner gathers "
+                        f"{gather_bytes / 1e9:.3f} GB = "
+                        f"{gather_bytes / (ms * 1e-3) / 1e12:.2f} TB/s through L2/L1")
+                    report[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by, max_abs_err=err)
+                if not with_bwd:
+                    continue
+                # K2 at the same call: each gradient against autograd through
+                # the plain version, within tol x its own max |.|.  The order
+                # of d_value's atomic sums changes from run to run.
+                g = torch.randn(n, lq, HEADS * HEAD_DIM, generator=torch.Generator(
+                    device="cuda").manual_seed(9), device="cuda").to(dtype)
+                got = msda.ms_deform_attn_cm_backward(value, shapes, x, y, aw, g)
+                torch.cuda.synchronize()
+                want = msda.ms_deform_attn_cm_grad_reference(value.float(), shapes, x, y, aw,
+                                                             g.float())
+                err = held_grads(f"K2 msda_bwd {label}", got, want,
+                                 ("d_value", "d_x", "d_y", "d_aw"), tol, dtype)
+                del got, want
+                if dtype == torch.bfloat16:
+                    ms, plain_ms = time_bwd(
+                        lambda: msda.ms_deform_attn_cm_backward(value, shapes, x, y, aw, g),
+                        lambda v, *p: msda.ms_deform_attn_cm_reference(v, shapes, *p),
+                        (value, x, y, aw), g)
+                    nbytes, flops = msda_bwd_work(shapes, value, x, y, aw)
+                    bound_ms, bound_by = timed_bound(nbytes, flops)
+                    log(f"kernel msda_bwd {tag} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+                        f"{flops / 1e9:.3f} GFLOP f32)")
+                    report[f"bwd {tag}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                bound_by=bound_by, max_abs_err=err)
     results["msda"] = report["serve encoder"]
     results["msda_train"] = report["train encoder"]
+    results["msda_calls"] = {k: v for k, v in report.items() if not k.startswith("bwd ")}
     results["msda_bwd"] = report["bwd train encoder"]
+    results["msda_bwd_calls"] = {k[4:]: v for k, v in report.items() if k.startswith("bwd ")}
     msda_other_kernel_checks(results)
+    resize_checks(results)
     wattn_kernel_checks(results)
+
+
+def held_grads(label, got, want, names, tol, value_dtype):
+    """Each gradient of a backward kernel against autograd through the plain
+    version (held: within tol x its own max |.|); d_value in the value's
+    type, the others float32.  Returns the largest error."""
+    worst = 0.0
+    for gname, a, b in zip(names, got, want):
+        check(a.dtype == (value_dtype if gname == "d_value" else torch.float32),
+              f"{label} {gname} dtype {a.dtype}")
+        worst = max(worst, held(f"{label} {gname}", a, b, tol))
+    return worst
+
+
+def time_bwd(fn, plain_fwd, inputs, g):
+    """(device ms of a backward kernel's wrapper fn(), device ms of the plain
+    backward alone): autograd through a graph of plain_fwd(*inputs) built
+    once, outside the timed calls."""
+    ms = cuda_ms(fn, 20)
+    inputs = [t.detach().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        out = plain_fwd(*inputs)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True), 5)
+    return ms, plain_ms
 
 
 def held(label, got, want, limit):
@@ -396,15 +392,17 @@ def fk_mma_flops(shapes, n, m, dim, p, lq):
 
 
 def msda_other_kernel_checks(results):
-    """The standard-layout entries K3 (forward) and K4 (backward) at the
-    serving and train encoder calls, on msda_inputs in the standard layout
-    (out-of-map, integer and NaN/inf samples), against their plain versions
-    with K1's and K2's limits; the dense-row (K5) and fused-K (K6) forwards
-    at the same calls against the plain gather version within 2e-2 x max
-    |out|, the bound of tests/test_ms_deform_attn_pallas.py for the TPU's
-    dense-row and fused-K kernels (they round their tensor-core operands to
-    bf16 in both dtypes).  K5 and K6 sample nothing at a non-finite
-    coordinate, as K1 and the plain version do.  Then times in bf16."""
+    """The standard-layout entries K3 (forward) and K4 (backward) on
+    msda_inputs in the standard layout (out-of-map, integer and NaN/inf
+    samples), against their plain versions with K1's and K2's limits: K3 at
+    the serving and train encoder calls, K4 at K2's calls (the encoder ones
+    on uniform and clustered samples, and the decoder ones); the dense-row
+    (K5) and fused-K (K6) forwards at the encoder calls against the plain
+    gather version within 2e-2 x max |out|, the bound of
+    tests/test_ms_deform_attn_pallas.py for the TPU's dense-row and fused-K
+    kernels (they round their tensor-core operands to bf16 in both dtypes).
+    K5 and K6 sample nothing at a non-finite coordinate, as K1 and the plain
+    version do.  Then times in bf16."""
     calls = (("serve encoder", SERVE_SHAPES, SERVE_N), ("train encoder", TRAIN_SHAPES, TRAIN_N))
     for name, shapes, n in calls:
         lq = sum(h * w for h, w in shapes)
@@ -416,17 +414,6 @@ def msda_other_kernel_checks(results):
             torch.cuda.synchronize()
             err3 = held(f"K3 msda_std {tag}", got,
                         msda.ms_deform_attn_reference(value.float(), shapes, locs, attn), tol)
-            g = torch.randn(n, lq, HEADS * HEAD_DIM, generator=torch.Generator(
-                device="cuda").manual_seed(9), device="cuda").to(dtype)
-            got = msda.ms_deform_attn_backward(value, shapes, locs, attn, g)
-            torch.cuda.synchronize()
-            want = msda.ms_deform_attn_grad_reference(value.float(), shapes, locs, attn,
-                                                      g.float())
-            err4 = 0.0
-            for gname, a, b in zip(("d_value", "d_locs", "d_attn"), got, want):
-                check(a.dtype == (dtype if gname == "d_value" else torch.float32),
-                      f"K4 {gname} dtype {a.dtype}")
-                err4 = max(err4, held(f"K4 msda_std_bwd {tag} {gname}", a, b, tol))
             want = msda.ms_deform_attn_cm_reference(value.float(), shapes, x, y, aw)
             errs = {}
             for kname, label, fn in (("K5", "msda_r4", msda_var.ms_deform_attn_cm_r4),
@@ -438,26 +425,23 @@ def msda_other_kernel_checks(results):
             if dtype != torch.bfloat16:
                 continue
             fwd_bytes, fwd_flops = msda_work(shapes, value, x, y, aw)
-            bwd_bytes, bwd_flops = msda_bwd_work(shapes, value, x, y, aw)
             fwd_bound = timed_bound(fwd_bytes, fwd_flops)
-            bwd_bound = timed_bound(bwd_bytes, bwd_flops)
             timings = {
                 "K3": (lambda: msda.ms_deform_attn_fast(value, shapes, locs, attn), 50,
                        lambda: msda.ms_deform_attn_reference(value, shapes, locs, attn), 10,
-                       fwd_bound, err3),
+                       err3),
                 "K5": (lambda: msda_var.ms_deform_attn_cm_r4(value, shapes, x, y, aw), 20,
                        lambda: msda_var.ms_deform_attn_cm_r4_reference(value, shapes, x, y, aw),
-                       3, fwd_bound, errs["K5"]),
+                       3, errs["K5"]),
                 "K6": (lambda: msda_var.ms_deform_attn_cm_fk(value, shapes, x, y, aw), 20,
                        lambda: msda_var.ms_deform_attn_cm_fk_reference(value, shapes, x, y, aw),
-                       3, fwd_bound, errs["K6"]),
+                       3, errs["K6"]),
             }
-            for kname, (fn, iters, plain, plain_iters, (bound_ms, bound_by), err) in (
-                    timings.items()):
+            for kname, (fn, iters, plain, plain_iters, err) in timings.items():
                 ms = cuda_ms(fn, iters)
                 plain_ms = cuda_ms(plain, plain_iters, warmup=1)
-                entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             max_abs_err=err)
+                entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=fwd_bound[0],
+                             bound_by=fwd_bound[1], max_abs_err=err)
                 extra = ""
                 if kname != "K3":
                     mma = (r4_mma_flops(shapes, x, y, HEAD_DIM) if kname == "K5" else
@@ -467,20 +451,97 @@ def msda_other_kernel_checks(results):
                              f"(>= {entry['mma_bound_ms']:.4f} ms at 989 TFLOP/s, "
                              f"{mma / (ms * 1e-3) / 1e12:.1f} TFLOP/s)")
                 log(f"kernel {kname} {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms by {bound_by}{extra}")
+                    f"bound {fwd_bound[0]:.4f} ms by {fwd_bound[1]}{extra}")
                 results.setdefault(kname, {})[name] = entry
-            # K4 alone against the plain backward alone, as K2
-            ms = cuda_ms(lambda: msda.ms_deform_attn_backward(value, shapes, locs, attn, g), 20)
-            inputs = [t.detach().requires_grad_() for t in (value, locs, attn)]
-            with torch.enable_grad():
-                out = msda.ms_deform_attn_reference(inputs[0], shapes, *inputs[1:])
-            plain_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True), 5)
-            del inputs, out
-            log(f"kernel K4 {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]}")
-            results.setdefault("K4", {})[name] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-                max_abs_err=err4)
+
+    # K4 at K2's calls, against the plain backward, timed alone as K2 is
+    for name, shapes, n, lq in (
+            ("serve encoder", SERVE_SHAPES, SERVE_N, sum(h * w for h, w in SERVE_SHAPES)),
+            ("serve decoder", SERVE_SHAPES, SERVE_N, QUERIES),
+            ("train encoder", TRAIN_SHAPES, TRAIN_N, sum(h * w for h, w in TRAIN_SHAPES)),
+            ("train decoder", TRAIN_SHAPES, TRAIN_N, QUERIES)):
+        for clustered in ((False, True) if name.endswith("encoder") else (False,)):
+            call = f"{name} clustered" if clustered else name
+            for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+                value, x, y, aw = msda_inputs(shapes, n, lq, dtype, seed=7, clustered=clustered)
+                locs, attn = msda._cm_to_standard(x, y, aw)
+                g = torch.randn(n, lq, HEADS * HEAD_DIM, generator=torch.Generator(
+                    device="cuda").manual_seed(9), device="cuda").to(dtype)
+                got = msda.ms_deform_attn_backward(value, shapes, locs, attn, g)
+                torch.cuda.synchronize()
+                want = msda.ms_deform_attn_grad_reference(value.float(), shapes, locs, attn,
+                                                          g.float())
+                err = held_grads(f"K4 msda_std_bwd {call} N={n} Lq={lq} {str(dtype)[6:]}",
+                                 got, want, ("d_value", "d_locs", "d_attn"), tol, dtype)
+                del got, want
+                if dtype != torch.bfloat16:
+                    continue
+                ms, plain_ms = time_bwd(
+                    lambda: msda.ms_deform_attn_backward(value, shapes, locs, attn, g),
+                    lambda v, *p: msda.ms_deform_attn_reference(v, shapes, *p),
+                    (value, locs, attn), g)
+                bound_ms, bound_by = timed_bound(*msda_bwd_work(shapes, value, x, y, aw))
+                log(f"kernel K4 {call} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms by {bound_by}")
+                results.setdefault("K4", {})[call] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    max_abs_err=err)
+
+
+# memory-fusion resize (models/ocpg.py): the encoder's stride-16 and -32
+# levels to stride 8, N = frames, 256 channels
+FUSION_CALLS = (("serve", SERVE_N, ((24, 40), (12, 20)), (48, 80)),
+                ("train", TRAIN_N, ((32, 40), (16, 20)), (64, 80)))
+
+
+def resize_checks(results):
+    """The memory-fusion bicubic resize (ops/image.py: two bf16 products
+    with float32 accumulation, rounded to bf16 between them) on the card
+    against the same function on the CPU, forward and gradient, within
+    1e-2 x max |.| at the serving and train calls; then its device time at
+    the train call, forward and forward + backward, beside F.interpolate's
+    bicubic (the function the port called before, which rounds once)."""
+    import torch.nn.functional as F
+
+    def interpolate(x, size):
+        return F.interpolate(x, size=size, mode="bicubic", align_corners=False)
+
+    for name, n, levels, size in FUSION_CALLS:
+        gen = torch.Generator().manual_seed(31)
+        xs = [torch.randn(n, 256, h, w, generator=gen).bfloat16() for h, w in levels]
+        gout = torch.randn(n, 256, *size, generator=gen)
+
+        def fusion(inputs, resize=image.bicubic_resize):
+            return sum(resize(x, size).float() for x in inputs)
+
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            inputs = [x.to(dev, copy=True).requires_grad_() for x in xs]
+            out = fusion(inputs)
+            out.backward(gout.to(dev))
+            outs[dev] = [out.detach().cuda()] + [t.grad.cuda() for t in inputs]
+        errs = [held(f"resize memory fusion {name} N={n} {levels}->{size} bf16 "
+                     f"{'forward' if i == 0 else f'd_level{i}'} (card vs cpu)", a, b, 1e-2)
+                for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"]))]
+        if name != "train":
+            continue
+        inputs = [x.cuda() for x in xs]
+        grad_inputs = [x.cuda().requires_grad_() for x in xs]
+        go = gout.cuda()
+
+        def fwd_bwd(resize):
+            torch.autograd.grad(fusion(grad_inputs, resize), grad_inputs, go)
+
+        entry = dict(max_abs_err=max(errs),
+                     fwd_ms=cuda_ms(lambda: fusion(inputs), 50),
+                     interpolate_fwd_ms=cuda_ms(lambda: fusion(inputs, interpolate), 20),
+                     fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(image.bicubic_resize), 20),
+                     interpolate_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(interpolate), 5, warmup=1))
+        log(f"resize memory fusion {name} bf16: forward {entry['fwd_ms']:.4f} ms "
+            f"(F.interpolate {entry['interpolate_fwd_ms']:.4f}), forward + backward "
+            f"{entry['fwd_bwd_ms']:.4f} ms (F.interpolate "
+            f"{entry['interpolate_fwd_bwd_ms']:.4f})")
+        results["resize"] = entry
 
 
 def swin_call(grid, heads, window=SWIN_WINDOW, frames=SWIN_T):
@@ -1019,8 +1080,9 @@ def main() -> int:
         fn(results)
         log(f"phase {name} ok in {time.perf_counter() - t0:.1f} s")
 
-    # K1 timed at the serving encoder call (and at the train encoder), K2,
-    # K3 and K4 at the train encoder (and the serving one), K5 and K6 at the
+    # K1 timed at the serving encoder call (and at every call of phase
+    # kernel, by_call), K2, K3 and K4 at the train encoder (K2 and K4 also at
+    # the serving encoder, the decoder calls and on clustered samples), K5 and K6 at the
     # serving encoder (the bench's eval call, and the train one), K7 at the
     # Swin-B stage-0 call of a shifted block; launches counted on each
     # path's run, the entry's own on its main path (train for K1 and K2,
@@ -1038,18 +1100,18 @@ def main() -> int:
               "ocpg_tpu/ops/ms_deform_attn_pallas.py:620", results["msda"], "K1", "train",
               at="serve encoder",
               train_encoder={k: results["msda_train"][k] for k in
-                             ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}),
+                             ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+              by_call=results["msda_calls"]),
         entry("ms_deform_attn_cm_backward", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_bwd.cu",
               "ocpg_tpu/ops/ms_deform_attn_pallas.py:994", results["msda_bwd"], "K2", "train",
-              at="train encoder"),
+              at="train encoder", by_call=results["msda_bwd_calls"]),
         entry("ms_deform_attn_fast", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_fwd.cu",
               "ocpg_tpu/ops/ms_deform_attn_pallas.py:138", results["K3"]["train encoder"],
               "K3", "std_op", at="train encoder",
               serve_encoder=results["K3"]["serve encoder"]),
         entry("ms_deform_attn_backward", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_bwd.cu",
               "ocpg_tpu/ops/ms_deform_attn_pallas.py:370", results["K4"]["train encoder"],
-              "K4", "std_op", at="train encoder",
-              serve_encoder=results["K4"]["serve encoder"]),
+              "K4", "std_op", at="train encoder", by_call=results["K4"]),
         entry("ms_deform_attn_cm_r4", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_r4.cu",
               "ocpg_tpu/ops/ms_deform_attn_pallas.py:746", results["K5"]["serve encoder"],
               "K5", "msda_bench", at="serve encoder",
@@ -1069,6 +1131,7 @@ def main() -> int:
               "swin_serve", at="swin-B stage 0, shifted block (bw=322, h=4, n=245, dh=32)",
               by_call=results["wattn_report"]),
     ]
+    log("resize: " + json.dumps(results["resize"]))
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

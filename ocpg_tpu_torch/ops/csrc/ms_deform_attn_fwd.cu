@@ -35,9 +35,10 @@
 // wide, and a warp covers 8 (or 4) consecutive queries of one (n, m).  Each
 // gather is one 16-byte load per thread, 512 bytes of 8 distinct rows per
 // warp instruction, and the output is written with 16-byte stores into the
-// contiguous (N, Lq, M * D) row.  A block of 256 threads takes
-// 256 / (D / 8) consecutive queries of one (n, m) (64 at D = 32, bf16) and
-// first stages their x, y and aw for all L * P samples in shared memory
+// contiguous (N, Lq, M * D) row.  A block of up to 256 threads takes
+// q_block consecutive queries of one (n, m), sized to Lq by msda_q_block
+// (64 at D = 32, bf16, at the encoder calls; one warp for the decoder's
+// Lq = 5), and first stages their x, y and aw for all L * P samples in shared memory
 // with coalesced loads (in the CM layout, 64 contiguous floats per sample;
 // in the standard layout, each query's contiguous L * P * 3 floats).  Per
 // sample, a thread then computes the bilinear weights, issues its four
@@ -60,44 +61,6 @@
 #define MSDA_FWD_THREADS 256
 #define MSDA_FWD_MIN_BLOCKS 6    // per SM: 48 warps, at most 40 registers a thread
 
-// 16 bytes of channels: 4 float32 or 8 bf16, unpacked to and packed from
-// float32.
-template <typename scalar_t>
-struct Vec16;
-
-template <>
-struct Vec16<float> {
-  static constexpr int kN = 4;
-  __device__ static void unpack(const uint4& u, float (&f)[kN]) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  __device__ static uint4 pack(const float (&f)[kN]) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                      __float_as_uint(f[3]));
-  }
-};
-
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void unpack(const uint4& u, float (&f)[kN]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 v = __bfloat1622float2(h[i]);
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
-    }
-  }
-  __device__ static uint4 pack(const float (&f)[kN]) {
-    return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
-                      pack_bf16(f[6], f[7]));
-  }
-};
-
 template <typename scalar_t, typename Layout>
 __global__ void __launch_bounds__(MSDA_FWD_THREADS, MSDA_FWD_MIN_BLOCKS)
 msda_fwd_kernel(const scalar_t* __restrict__ value, const float* __restrict__ x_ptr,
@@ -118,22 +81,11 @@ msda_fwd_kernel(const scalar_t* __restrict__ value, const float* __restrict__ x_
   const int q0 = (blockIdx.x - nm * q_tiles) * q_block;
   const int m = nm % n_heads;
   const int n = nm / n_heads;
-  for (int e = threadIdx.x; e < q_block * lp; e += blockDim.x) {
-    int s, qi;
-    if (Layout::kSampleMajor) {
-      qi = e / lp;
-      s = e - qi * lp;
-    } else {
-      s = e / q_block;
-      qi = e - s * q_block;
-    }
-    if (q0 + qi >= lq) continue;
-    const long long idx = Layout::base(n, m, q0 + qi, n_heads, lp, lq) +
-                          static_cast<long long>(s) * Layout::step(lq);
-    sx[s * ld + qi] = __ldg(x_ptr + idx * Layout::kXY);
-    sy[s * ld + qi] = __ldg(y_ptr + idx * Layout::kXY);
-    sa[s * ld + qi] = __ldg(aw_ptr + idx);
-  }
+  for_each_slot<Layout>(n, m, q0, q_block, n_heads, lp, lq, [&](int slot, long long idx) {
+    sx[slot] = __ldg(x_ptr + idx * Layout::kXY);
+    sy[slot] = __ldg(y_ptr + idx * Layout::kXY);
+    sa[slot] = __ldg(aw_ptr + idx);
+  });
   __syncthreads();
 
   const int chunks = dim / V::kN;                 // 16-byte chunks per head row
@@ -206,9 +158,8 @@ static int launch_typed(const void* value, const float* x, const float* y, const
     return cudaErrorInvalidValue;
   const int chunks = dim / vec;
   const int lp = n_levels * n_points;
-  int q_block = MSDA_FWD_THREADS / chunks;
-  while (q_block > 1 && 3 * sizeof(float) * lp * (q_block + 1) > 48 * 1024) q_block /= 2;
-  const size_t smem = 3 * sizeof(float) * lp * (q_block + 1);
+  const int q_block = msda_q_block(lq, chunks, MSDA_FWD_THREADS, lp, 3);
+  const size_t smem = msda_smem_bytes(q_block, lp, 3);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   const int q_tiles = (lq + q_block - 1) / q_block;
   const long long blocks = static_cast<long long>(n_batch) * n_heads * q_tiles;

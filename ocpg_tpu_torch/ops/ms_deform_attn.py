@@ -140,18 +140,31 @@ def _check_cuda(value, named):
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
-def _check_fwd_vectors(value):
-    """The forward kernel (K1, K3) moves 16 bytes of channels per load: D a
-    multiple of 8 (bfloat16) or 4 (float32), at most 256 such loads per
-    head row, and the value 16-byte aligned."""
+def _check_vectors(value, backward=False):
+    """The MSDA kernels move 16 bytes of channels per load: D a multiple of
+    8 (bfloat16) or 4 (float32) and the value 16-byte aligned.  The forward
+    (K1, K3) takes at most 256 such chunks per head row; the backward (K2,
+    K4) sums a query's partial sums over its threads with xor shuffles, so
+    its chunks are a power of two of at most 32."""
     d = value.shape[3]
     vec = 8 if value.dtype == torch.bfloat16 else 4
-    if d % vec or d // vec > 256:
+    chunks = d // vec
+    kernel = "backward" if backward else "forward"
+    if backward and (d % vec or chunks > 32 or chunks & (chunks - 1)):
+        raise ValueError(f"MSDA backward kernel takes D = {vec} x 2^k (k <= 5) for "
+                         f"{value.dtype}, got D={d}")
+    if d % vec or chunks > 256:
         raise ValueError(f"MSDA forward kernel takes D a multiple of {vec} and at most "
                          f"{256 * vec} for {value.dtype}, got D={d}")
     if value.data_ptr() % 16:
-        raise ValueError(f"MSDA forward kernel takes a 16-byte aligned value, got "
+        raise ValueError(f"MSDA {kernel} kernel takes a 16-byte aligned value, got "
                          f"{value.data_ptr():#x}")
+
+
+def _aligned(t):
+    """t, or a copy of it where its data does not start on 16 bytes (a view
+    into a larger tensor): the kernels read it with 16-byte loads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _call(fn, name, value, spatial_shapes, p, lq, pointers):
@@ -170,7 +183,7 @@ def _call(fn, name, value, spatial_shapes, p, lq, pointers):
 def _launch(value, spatial_shapes, x_cm, y_cm, aw_cm):
     global launches
     f32 = torch.float32
-    _check_fwd_vectors(value)
+    _check_vectors(value)
     _check_cuda(value, (("value", value, value.dtype), ("x_cm", x_cm, f32),
                         ("y_cm", y_cm, f32), ("aw_cm", aw_cm, f32)))
     n, _, m, d = value.shape
@@ -184,6 +197,7 @@ def _launch(value, spatial_shapes, x_cm, y_cm, aw_cm):
 def _launch_bwd(value, spatial_shapes, x_cm, y_cm, aw_cm, grad_out):
     global bwd_launches
     f32 = torch.float32
+    _check_vectors(value, backward=True)
     _check_cuda(value, (("value", value, value.dtype), ("x_cm", x_cm, f32),
                         ("y_cm", y_cm, f32), ("aw_cm", aw_cm, f32),
                         ("grad_out", grad_out, value.dtype)))
@@ -191,8 +205,8 @@ def _launch_bwd(value, spatial_shapes, x_cm, y_cm, aw_cm, grad_out):
     if grad_out.shape != (n, x_cm.shape[-1], m * d):
         raise ValueError(f"grad_out {tuple(grad_out.shape)} != output "
                          f"{(n, x_cm.shape[-1], m * d)}")
-    # d_value is summed with float32 atomics into zeroed scratch; the
-    # coordinate and weight gradients are written once per sample
+    # d_value is summed with 16-byte float32 reductions into zeroed scratch;
+    # the coordinate and weight gradients are written once per sample
     d_value = torch.zeros(value.shape, dtype=f32, device=value.device)
     d_x, d_y, d_aw = (torch.empty_like(x_cm) for _ in range(3))
     _call(_kernel(BWD_SOURCE, "msda_cm_bwd", 9), "msda_cm_bwd", value, spatial_shapes,
@@ -209,7 +223,7 @@ def ms_deform_attn_cm_backward(value: torch.Tensor, spatial_shapes: Shapes,
     _check(value, spatial_shapes, x_cm, y_cm, aw_cm)
     if value.is_cuda:
         return _launch_bwd(value, spatial_shapes, x_cm, y_cm, aw_cm,
-                           grad_out.to(value.dtype).contiguous())
+                           _aligned(grad_out.to(value.dtype).contiguous()))
     if value.device.type == "cpu":
         return ms_deform_attn_cm_grad_reference(value, spatial_shapes, x_cm, y_cm, aw_cm,
                                                 grad_out)
@@ -344,7 +358,7 @@ def _check_std(value, spatial_shapes, locs, attn):
 def _launch_std(value, spatial_shapes, locs, attn):
     global std_launches
     f32 = torch.float32
-    _check_fwd_vectors(value)
+    _check_vectors(value)
     _check_cuda(value, (("value", value, value.dtype), ("locs", locs, f32),
                         ("attn", attn, f32)))
     n, lq, m = locs.shape[:3]
@@ -358,13 +372,14 @@ def _launch_std(value, spatial_shapes, locs, attn):
 def _launch_std_bwd(value, spatial_shapes, locs, attn, grad_out):
     global std_bwd_launches
     f32 = torch.float32
+    _check_vectors(value, backward=True)
     _check_cuda(value, (("value", value, value.dtype), ("locs", locs, f32),
                         ("attn", attn, f32), ("grad_out", grad_out, value.dtype)))
     n, lq, m = locs.shape[:3]
     if grad_out.shape != (n, lq, m * value.shape[3]):
         raise ValueError(f"grad_out {tuple(grad_out.shape)} != output "
                          f"{(n, lq, m * value.shape[3])}")
-    # as in the CM backward: d_value by float32 atomics into zeroed scratch
+    # as in the CM backward: d_value by float32 reductions into zeroed scratch
     d_value = torch.zeros(value.shape, dtype=f32, device=value.device)
     d_locs, d_attn = torch.empty_like(locs), torch.empty_like(attn)
     _call(_kernel(BWD_SOURCE, "msda_std_bwd", 7), "msda_std_bwd", value, spatial_shapes,
@@ -390,7 +405,7 @@ def ms_deform_attn_backward(value: torch.Tensor, spatial_shapes: Shapes,
     _check_std(value, spatial_shapes, locs, attn)
     if value.is_cuda:
         return _launch_std_bwd(value, spatial_shapes, locs, attn,
-                               grad_out.to(value.dtype).contiguous())
+                               _aligned(grad_out.to(value.dtype).contiguous()))
     if value.device.type == "cpu":
         return ms_deform_attn_grad_reference(value, spatial_shapes, locs, attn, grad_out)
     raise ValueError(f"MSDA has no path for device {value.device}")
