@@ -21,8 +21,10 @@ exit, no result line) if it goes wrong:
                  samples); their standard-layout entries (K3 at the encoder
                  calls, K4 at K2's calls) on the same samples in the
                  standard layout; the dense-row (K5) and fused-K (K6)
-                 forwards at the encoder calls against the plain gather
-                 version; the memory-fusion bicubic resize (two bf16
+                 forwards against the plain gather version at the encoder
+                 calls, uniform and clustered, and at the decoder calls
+                 (Lq = 5, a ragged query tile), timed at the encoder calls
+                 with the tensor-core FLOPs they execute; the memory-fusion bicubic resize (two bf16
                  products) against the CPU, forward and gradient, timed
                  beside F.interpolate's bicubic at the train call; the Swin
                  window attention (K7) at the four Video Swin-B serving calls with
@@ -111,10 +113,10 @@ from ocpg_tpu_torch.ops import ms_deform_attn as msda
 from ocpg_tpu_torch.ops import ms_deform_attn_variants as msda_var
 from ocpg_tpu_torch.ops import window_attention as wattn
 from ocpg_tpu_torch.scripts import bench_msda_kernel
-# the model's MSDA (M, D, P), the train path's levels and frames, and the
-# seeded MSDA inputs (uniform or clustered samples)
-from ocpg_tpu_torch.scripts.bench_msda_bwd import (HEAD_DIM, HEADS, POINTS, TRAIN_N,
-                                                   TRAIN_SHAPES, msda_inputs)
+# the model's MSDA (M, D), the serving and train paths' levels and frames,
+# and the seeded MSDA inputs (uniform or clustered samples)
+from ocpg_tpu_torch.scripts.bench_msda_bwd import (HEAD_DIM, HEADS, SERVE_N, SERVE_SHAPES,
+                                                   TRAIN_N, TRAIN_SHAPES, msda_inputs)
 
 # H100 SXM (NVIDIA's data sheet): HBM rate, float32 rate outside the tensor
 # cores, dense bf16 tensor-core rate
@@ -124,9 +126,8 @@ BF16_FLOPS_PER_S = 989e12
 # cycles per second of torch.cuda._sleep's spin (an SM clock at or above the
 # card's; a slower clock only lengthens the sleep)
 SLEEP_CYCLES_PER_S = 2.0e9
-# serving path: bucket 384 x 640, clip_len 5, one slot -> levels at strides 8..64
-SERVE_SHAPES = ((48, 80), (24, 40), (12, 20), (6, 10))
-SERVE_N, QUERIES = 5, 5
+# the decoder calls' queries (Lq = 5)
+QUERIES = 5
 # Swin-B serving path (video_swin_b_p4w7, one 5 x 384 x 640 clip): the token
 # grid and heads of each stage; the (8, 7, 7) window clamps to T = 5, n = 245
 SWIN_T, SWIN_WINDOW, SWIN_HEAD_DIM = 5, (8, 7, 7), 32
@@ -315,6 +316,7 @@ def phase_kernel(results):
     results["msda_bwd"] = report["bwd train encoder"]
     results["msda_bwd_calls"] = {k[4:]: v for k, v in report.items() if k.startswith("bwd ")}
     msda_other_kernel_checks(results)
+    dense_row_kernel_checks(results)
     resize_checks(results)
     wattn_kernel_checks(results)
 
@@ -354,55 +356,13 @@ def held(label, got, want, limit):
     return err
 
 
-def r4_mma_flops(shapes, x, y, dim):
-    """Tensor-core FLOPs K5 executes on these inputs: 2 x 64 x 64 x D for
-    each (n, m, 64-query tile, level, 64-key chunk) that an in-map corner of
-    the tile lands in (the kernel skips the other chunks)."""
-    n, m, _, p, lq = x.shape
-    nm = torch.arange(n * m, device=x.device).reshape(n, m, 1, 1)
-    tile = (torch.arange(lq, device=x.device) // 64).reshape(1, 1, 1, lq)
-    n_tiles = -(-lq // 64)
-    chunks = 0
-    for lid, (h, w) in enumerate(shapes):
-        xp = x[:, :, lid] * w - 0.5
-        yp = y[:, :, lid] * h - 0.5
-        ok = (xp > -1) & (yp > -1) & (xp < w) & (yp < h)
-        x0 = torch.where(ok, torch.floor(xp), 0.0).long()
-        y0 = torch.where(ok, torch.floor(yp), 0.0).long()
-        n_chunks = -(-(h * w) // 64)
-        ids = []
-        for cx, cy in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
-            inside = ok & (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
-            cid = ((nm * n_tiles + tile) * n_chunks + (cy * w + cx) // 64)
-            ids.append(cid[inside])
-        chunks += torch.unique(torch.cat(ids)).numel()
-    return chunks * 2 * 64 * 64 * dim
-
-
-def fk_mma_flops(shapes, n, m, dim, p, lq):
-    """Tensor-core FLOPs K6 executes: per (n, m, point, 64-query tile) and
-    level, a 64 x 64 x 16 product per block of 64 A columns and K step that
-    overlaps the level's rows of cx_all."""
-    koff = per_tile = 0
-    for h, w in shapes:
-        steps = (-(-(koff + w) // 16) * 16 - koff // 16 * 16) // 16
-        per_tile += -(-(h * dim) // 64) * steps
-        koff += w
-    return n * m * p * -(-lq // 64) * per_tile * 2 * 64 * 64 * 16
-
-
 def msda_other_kernel_checks(results):
     """The standard-layout entries K3 (forward) and K4 (backward) on
     msda_inputs in the standard layout (out-of-map, integer and NaN/inf
     samples), against their plain versions with K1's and K2's limits: K3 at
     the serving and train encoder calls, K4 at K2's calls (the encoder ones
-    on uniform and clustered samples, and the decoder ones); the dense-row
-    (K5) and fused-K (K6) forwards at the encoder calls against the plain
-    gather version within 2e-2 x max |out|, the bound of
-    tests/test_ms_deform_attn_pallas.py for the TPU's dense-row and fused-K
-    kernels (they round their tensor-core operands to bf16 in both dtypes).
-    K5 and K6 sample nothing at a non-finite coordinate, as K1 and the plain
-    version do.  Then times in bf16."""
+    on uniform and clustered samples, and the decoder ones).  Then times in
+    bf16."""
     calls = (("serve encoder", SERVE_SHAPES, SERVE_N), ("train encoder", TRAIN_SHAPES, TRAIN_N))
     for name, shapes, n in calls:
         lq = sum(h * w for h, w in shapes)
@@ -414,45 +374,17 @@ def msda_other_kernel_checks(results):
             torch.cuda.synchronize()
             err3 = held(f"K3 msda_std {tag}", got,
                         msda.ms_deform_attn_reference(value.float(), shapes, locs, attn), tol)
-            want = msda.ms_deform_attn_cm_reference(value.float(), shapes, x, y, aw)
-            errs = {}
-            for kname, label, fn in (("K5", "msda_r4", msda_var.ms_deform_attn_cm_r4),
-                                     ("K6", "msda_fk", msda_var.ms_deform_attn_cm_fk)):
-                got = fn(value, shapes, x, y, aw)
-                torch.cuda.synchronize()
-                errs[kname] = held(f"{kname} {label} {tag}", got, want, 2e-2)
-            del got, want
+            del got
             if dtype != torch.bfloat16:
                 continue
-            fwd_bytes, fwd_flops = msda_work(shapes, value, x, y, aw)
-            fwd_bound = timed_bound(fwd_bytes, fwd_flops)
-            timings = {
-                "K3": (lambda: msda.ms_deform_attn_fast(value, shapes, locs, attn), 50,
-                       lambda: msda.ms_deform_attn_reference(value, shapes, locs, attn), 10,
-                       err3),
-                "K5": (lambda: msda_var.ms_deform_attn_cm_r4(value, shapes, x, y, aw), 20,
-                       lambda: msda_var.ms_deform_attn_cm_r4_reference(value, shapes, x, y, aw),
-                       3, errs["K5"]),
-                "K6": (lambda: msda_var.ms_deform_attn_cm_fk(value, shapes, x, y, aw), 20,
-                       lambda: msda_var.ms_deform_attn_cm_fk_reference(value, shapes, x, y, aw),
-                       3, errs["K6"]),
-            }
-            for kname, (fn, iters, plain, plain_iters, err) in timings.items():
-                ms = cuda_ms(fn, iters)
-                plain_ms = cuda_ms(plain, plain_iters, warmup=1)
-                entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=fwd_bound[0],
-                             bound_by=fwd_bound[1], max_abs_err=err)
-                extra = ""
-                if kname != "K3":
-                    mma = (r4_mma_flops(shapes, x, y, HEAD_DIM) if kname == "K5" else
-                           fk_mma_flops(shapes, n, HEADS, HEAD_DIM, POINTS, lq))
-                    entry.update(mma_gflop=mma / 1e9, mma_bound_ms=mma / BF16_FLOPS_PER_S * 1e3)
-                    extra = (f"; executes {mma / 1e9:.1f} GFLOP on the tensor cores "
-                             f"(>= {entry['mma_bound_ms']:.4f} ms at 989 TFLOP/s, "
-                             f"{mma / (ms * 1e-3) / 1e12:.1f} TFLOP/s)")
-                log(f"kernel {kname} {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {fwd_bound[0]:.4f} ms by {fwd_bound[1]}{extra}")
-                results.setdefault(kname, {})[name] = entry
+            bound_ms, bound_by = timed_bound(*msda_work(shapes, value, x, y, aw))
+            ms = cuda_ms(lambda: msda.ms_deform_attn_fast(value, shapes, locs, attn), 50)
+            plain_ms = cuda_ms(lambda: msda.ms_deform_attn_reference(value, shapes, locs, attn),
+                               10, warmup=1)
+            log(f"kernel K3 {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms by {bound_by}")
+            results.setdefault("K3", {})[name] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err3)
 
     # K4 at K2's calls, against the plain backward, timed alone as K2 is
     for name, shapes, n, lq in (
@@ -486,6 +418,58 @@ def msda_other_kernel_checks(results):
                 results.setdefault("K4", {})[call] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     max_abs_err=err)
+
+
+def dense_row_kernel_checks(results):
+    """The dense-row (K5) and fused-K (K6) forwards against the plain gather
+    version within 2e-2 x max |out|, the bound of
+    tests/test_ms_deform_attn_pallas.py for the TPU's dense-row and fused-K
+    kernels (they round their tensor-core operands to bf16 in both dtypes),
+    float32 and bfloat16, at the serving and train encoder calls on uniform
+    and on clustered samples and at the decoder calls (Lq = 5, a ragged
+    query tile); every input has out-of-map, integer and NaN/inf samples,
+    where K5 and K6 sample nothing, as K1 and the plain version do.  Then bf16
+    times at the encoder calls, uniform and clustered, with the tensor-core
+    FLOPs each kernel executes on those samples (r4_mma_flops, fk_mma_flops)
+    and the rate they reach."""
+    kernels = (("K5", msda_var.ms_deform_attn_cm_r4, msda_var.ms_deform_attn_cm_r4_reference,
+                msda_var.r4_mma_flops),
+               ("K6", msda_var.ms_deform_attn_cm_fk, msda_var.ms_deform_attn_cm_fk_reference,
+                msda_var.fk_mma_flops))
+    for name, shapes, n in (("serve", SERVE_SHAPES, SERVE_N), ("train", TRAIN_SHAPES, TRAIN_N)):
+        s = sum(h * w for h, w in shapes)
+        for call, lq, clustered in ((f"{name} encoder", s, False),
+                                    (f"{name} encoder clustered", s, True),
+                                    (f"{name} decoder", QUERIES, False)):
+            for dtype in (torch.float32, torch.bfloat16):
+                value, x, y, aw = msda_inputs(shapes, n, lq, dtype, seed=7, clustered=clustered)
+                want = msda.ms_deform_attn_cm_reference(value.float(), shapes, x, y, aw)
+                tag = f"{call} N={n} Lq={lq} {str(dtype)[6:]}"
+                errs = {}
+                for kname, fn, _, _ in kernels:
+                    got = fn(value, shapes, x, y, aw)
+                    torch.cuda.synchronize()
+                    check(got.dtype == dtype, f"{kname} {tag}: output dtype {got.dtype}")
+                    errs[kname] = held(f"{kname} {tag}", got, want, 2e-2)
+                    del got
+                del want
+                if dtype != torch.bfloat16 or call.endswith("decoder"):
+                    continue
+                bound_ms, bound_by = timed_bound(*msda_work(shapes, value, x, y, aw))
+                for kname, fn, plain, count in kernels:
+                    ms = cuda_ms(lambda: fn(value, shapes, x, y, aw), 20)
+                    plain_ms = cuda_ms(lambda: plain(value, shapes, x, y, aw), 3, warmup=1)
+                    mma = count(shapes, x, y, HEAD_DIM)
+                    entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 max_abs_err=errs[kname], mma_gflop=mma / 1e9,
+                                 mma_bound_ms=mma / BF16_FLOPS_PER_S * 1e3,
+                                 mma_tflops=mma / (ms * 1e-3) / 1e12)
+                    log(f"kernel {kname} {call} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"bound {bound_ms:.4f} ms by {bound_by}; executes "
+                        f"{entry['mma_gflop']:.1f} GFLOP on the tensor cores (>= "
+                        f"{entry['mma_bound_ms']:.4f} ms at 989 TFLOP/s), "
+                        f"{entry['mma_tflops']:.1f} TFLOP/s")
+                    results.setdefault(kname, {})[call] = entry
 
 
 # memory-fusion resize (models/ocpg.py): the encoder's stride-16 and -32
@@ -1115,17 +1099,15 @@ def main() -> int:
         entry("ms_deform_attn_cm_r4", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_r4.cu",
               "ocpg_tpu/ops/ms_deform_attn_pallas.py:746", results["K5"]["serve encoder"],
               "K5", "msda_bench", at="serve encoder",
-              mma_gflop=results["K5"]["serve encoder"]["mma_gflop"],
-              mma_bound_ms=results["K5"]["serve encoder"]["mma_bound_ms"],
-              train_encoder=results["K5"]["train encoder"],
-              bench_ms=results["msda_bench"]["ms"]["fwd/r4/eval"]),
+              **{k: results["K5"]["serve encoder"][k]
+                 for k in ("mma_gflop", "mma_bound_ms", "mma_tflops")},
+              by_call=results["K5"], bench_ms=results["msda_bench"]["ms"]["fwd/r4/eval"]),
         entry("ms_deform_attn_cm_fk", "ocpg_tpu_torch/ops/csrc/ms_deform_attn_fk.cu",
               "ocpg_tpu/ops/ms_deform_attn_pallas.py:1159", results["K6"]["serve encoder"],
               "K6", "msda_bench", at="serve encoder",
-              mma_gflop=results["K6"]["serve encoder"]["mma_gflop"],
-              mma_bound_ms=results["K6"]["serve encoder"]["mma_bound_ms"],
-              train_encoder=results["K6"]["train encoder"],
-              bench_ms=results["msda_bench"]["ms"]["fwd/fk/eval"]),
+              **{k: results["K6"]["serve encoder"][k]
+                 for k in ("mma_gflop", "mma_bound_ms", "mma_tflops")},
+              by_call=results["K6"], bench_ms=results["msda_bench"]["ms"]["fwd/fk/eval"]),
         entry("window_attention", "ocpg_tpu_torch/ops/csrc/window_attention_fwd.cu",
               "ocpg_tpu/ops/window_attention_pallas.py:139", results["wattn"], "K7",
               "swin_serve", at="swin-B stage 0, shifted block (bw=322, h=4, n=245, dh=32)",

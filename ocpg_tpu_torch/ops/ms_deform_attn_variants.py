@@ -20,20 +20,30 @@ or raises (no fallback), a CPU tensor runs the plain version
 which follows the formulation's algebra in the compute type (float32).  As
 in the JAX package they have no gradient: the CUDA path raises on inputs
 that require one.  The kernels round their tensor-core operands to
-bfloat16, accumulate in float32 and return the value's dtype; like K1 and
-the plain versions they sample nothing at a non-finite coordinate.
+bfloat16 (the wrapper rounds a float32 value before the launch, as the JAX
+wrappers do), accumulate in float32 and return the value's dtype; like K1
+and the plain versions they sample nothing at a non-finite coordinate.
 ``r4_launches`` and ``fk_launches`` count the kernels' launches.
+
+``r4_mma_flops`` and ``fk_mma_flops`` count the tensor-core FLOPs the two
+kernels execute on given samples: the products they run, zeros included,
+and not the ones they skip.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .ms_deform_attn import Shapes, _call, _check, _check_cuda, _hat, _kernel
+from .ms_deform_attn import Shapes, _aligned, _call, _check, _check_cuda, _hat, _kernel
 
 R4_SOURCE = "ms_deform_attn_r4.cu"
 FK_SOURCE = "ms_deform_attn_fk.cu"
-FK_MAX_K = 864          # sum_l W_l rounded up to 16, as msda_cm_fk_fwd takes it
+KERNEL_DIMS = (8, 16, 32, 64)   # D: a value row is one wgmma B row of 16-128 bytes
+R4_TILE_Q = 256         # queries per K5 block (two warpgroups of 128 rows)
+R4_CHUNK = 64           # keys per K5 product
+FK_GROUP_ROWS = 64      # query rows per K6 warpgroup (two per block)
+FK_COLS = 64            # A columns per K6 product block: 64 / D rows h
+FK_MAX_K = 160          # sum_l W_l rounded up to 16: K6 keeps 4 points' cx_all rows in shared memory
 
 # kernel launches since the last reset (set them to 0 to reset)
 r4_launches = 0
@@ -118,8 +128,11 @@ def _launch(source, symbol, value, spatial_shapes, x_cm, y_cm, aw_cm):
                         ("y_cm", y_cm, f32), ("aw_cm", aw_cm, f32)))
     n, _, m, d = value.shape
     out = torch.empty((n, x_cm.shape[-1], m * d), dtype=value.dtype, device=value.device)
+    # the kernels read a bf16 value by TMA (16-byte aligned) and write the
+    # value's dtype (_call passes it as the output's)
+    v16 = _aligned(value.to(torch.bfloat16))
     _call(_kernel(source, symbol, 5), symbol, value, spatial_shapes, *x_cm.shape[-2:],
-          (value, x_cm, y_cm, aw_cm, out))
+          (v16, x_cm, y_cm, aw_cm, out))
     return out
 
 
@@ -131,8 +144,8 @@ def ms_deform_attn_cm_r4(value: torch.Tensor, spatial_shapes: Shapes, x_cm: torc
     _check(value, spatial_shapes, x_cm, y_cm, aw_cm)
     if value.is_cuda:
         d, p = value.shape[3], x_cm.shape[3]
-        if d % 8 or d > 64 or p > 8:
-            raise ValueError(f"the r4 kernel takes D a multiple of 8 up to 64 and P <= 8, "
+        if d not in KERNEL_DIMS or p > 8:
+            raise ValueError(f"the r4 kernel takes D in {KERNEL_DIMS} and P <= 8, "
                              f"got D={d}, P={p}")
         out = _launch(R4_SOURCE, "msda_cm_r4_fwd", value, spatial_shapes, x_cm, y_cm, aw_cm)
         r4_launches += 1
@@ -151,8 +164,8 @@ def ms_deform_attn_cm_fk(value: torch.Tensor, spatial_shapes: Shapes, x_cm: torc
     if value.is_cuda:
         d = value.shape[3]
         k = -(-sum(w for _, w in spatial_shapes) // 16) * 16
-        if d not in (8, 16, 32, 64) or k > FK_MAX_K:
-            raise ValueError(f"the fk kernel takes D in (8, 16, 32, 64) and sum W_l up to "
+        if d not in KERNEL_DIMS or k > FK_MAX_K:
+            raise ValueError(f"the fk kernel takes D in {KERNEL_DIMS} and sum W_l up to "
                              f"{FK_MAX_K}, got D={d}, sum W_l={k}")
         out = _launch(FK_SOURCE, "msda_cm_fk_fwd", value, spatial_shapes, x_cm, y_cm, aw_cm)
         fk_launches += 1
@@ -160,3 +173,63 @@ def ms_deform_attn_cm_fk(value: torch.Tensor, spatial_shapes: Shapes, x_cm: torc
     if value.device.type == "cpu":
         return ms_deform_attn_cm_fk_reference(value, spatial_shapes, x_cm, y_cm, aw_cm)
     raise ValueError(f"MSDA has no path for device {value.device}")
+
+
+def _sample_cells(h, w, xn, yn):
+    """Pixel corner (x0, y0) of each sample and whether the sample lies in
+    the map (False at a non-finite coordinate), as the kernels decide it."""
+    xp = xn * w - 0.5
+    yp = yn * h - 0.5
+    ok = (xp > -1) & (yp > -1) & (xp < w) & (yp < h)
+    x0 = torch.where(ok, torch.floor(xp), 0.0).long()
+    y0 = torch.where(ok, torch.floor(yp), 0.0).long()
+    return ok, x0, y0
+
+
+def r4_mma_flops(shapes: Shapes, x_cm: torch.Tensor, y_cm: torch.Tensor, dim: int) -> int:
+    """Tensor-core FLOPs K5 executes on these samples: 2 x 128 x 64 x D for
+    each (n, m, 128-query tile, level, 64-key chunk) that an in-map corner
+    of a query of the tile lands in (both warpgroups multiply every chunk of
+    their block; the kernel skips the other chunks)."""
+    n, m, _, _, lq = x_cm.shape
+    dev = x_cm.device
+    nm = torch.arange(n * m, device=dev).reshape(n, m, 1, 1)
+    tile = (torch.arange(lq, device=dev) // R4_TILE_Q).reshape(1, 1, 1, lq)
+    n_tiles = -(-lq // R4_TILE_Q)
+    chunks = 0
+    for lid, (h, w) in enumerate(shapes):
+        ok, x0, y0 = _sample_cells(h, w, x_cm[:, :, lid], y_cm[:, :, lid])
+        n_chunks = -(-(h * w) // R4_CHUNK)
+        ids = []
+        for cx, cy in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
+            inside = ok & (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
+            cid = (nm * n_tiles + tile) * n_chunks + (cy * w + cx) // R4_CHUNK
+            ids.append(cid[inside])
+        chunks += torch.unique(torch.cat(ids)).numel()
+    return chunks * 2 * R4_TILE_Q * R4_CHUNK * dim
+
+
+def fk_mma_flops(shapes: Shapes, x_cm: torch.Tensor, y_cm: torch.Tensor, dim: int) -> int:
+    """Tensor-core FLOPs K6 executes on these samples: 2 x 64 x 64 x 16 per
+    K step of level l (the 16-deep steps that overlap its rows of cx_all)
+    for each (n, m, point, 64 query rows, level, block of 64 A columns) in
+    which some query of the 64 rows has an in-map sample whose y corner row
+    h or h + 1 lies in the block (the kernel skips the other blocks)."""
+    n, m, _, p, lq = x_cm.shape
+    dev = x_cm.device
+    hb = FK_COLS // dim
+    nmp = torch.arange(n * m * p, device=dev).reshape(n, m, p, 1)
+    rows = (torch.arange(lq, device=dev) // FK_GROUP_ROWS).reshape(1, 1, 1, lq)
+    n_groups = -(-lq // FK_GROUP_ROWS)
+    koff = steps = 0
+    for lid, (h, w) in enumerate(shapes):
+        ok, _, y0 = _sample_cells(h, w, x_cm[:, :, lid], y_cm[:, :, lid])
+        n_blocks = -(-h // hb)
+        ids = []
+        for cy in (y0, y0 + 1):
+            inside = ok & (cy >= 0) & (cy <= h - 1)
+            ids.append(((nmp * n_groups + rows) * n_blocks + cy // hb)[inside])
+        level_steps = -(-(koff + w) // 16) - koff // 16
+        steps += torch.unique(torch.cat(ids)).numel() * level_steps
+        koff += w
+    return steps * 2 * FK_GROUP_ROWS * FK_COLS * 16

@@ -38,6 +38,9 @@ HEADS, HEAD_DIM, POINTS = 8, 32, 4
 # the train path: B=1 clip of T=3 frames at 512 x 640 -> levels at strides 8..64
 TRAIN_SHAPES = ((64, 80), (32, 40), (16, 20), (8, 10))
 TRAIN_N = 3
+# the serving path: bucket 384 x 640, clip_len 5, one slot -> levels at strides 8..64
+SERVE_SHAPES = ((48, 80), (24, 40), (12, 20), (6, 10))
+SERVE_N = 5
 # K2's variants: replacements in its source, each of which must match once
 RED = "atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));"
 SHARED_ADD = "atomicAdd(p, v);"

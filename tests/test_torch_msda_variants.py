@@ -168,3 +168,91 @@ def test_bench_refuses_tpu_only_knobs(argv, capsys):
     with pytest.raises(SystemExit):
         bench_msda_kernel.main(argv, device="cpu")
     assert "Hopper" in capsys.readouterr().err
+
+
+# --- executed tensor-core FLOPs of the CUDA kernels (r4_mma_flops, fk_mma_flops)
+
+COUNT_LEVELS = ((16, 20), (8, 10), (4, 5))
+
+
+def _count_inputs(kind, n=2, m=2, p=3, lq=300, seed=11):
+    """x, y (N, M, L, P, Lq) float32: uniform over [-0.1, 1.1]; clustered in
+    a narrow band (a few chunks and column blocks); or uniform with whole
+    samples outside the map and NaN / inf coordinates."""
+    rng = np.random.default_rng(seed)
+    shape = (n, m, len(COUNT_LEVELS), p, lq)
+    if kind == "few_chunks":
+        x = rng.uniform(0.3, 0.4, shape)
+        y = rng.uniform(0.55, 0.6, shape)
+    else:
+        x = rng.uniform(-0.1, 1.1, shape)
+        y = rng.uniform(-0.1, 1.1, shape)
+    if kind == "outside_and_nan":
+        x[:, :, :, 0, ::5] = 1.7
+        y[:, :, :, 1, ::3] = -0.6
+        x[0, :, :, 2, ::7] = np.nan
+        y[1, :, 1, :, 2::11] = np.inf
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def _cells(xn, yn, h, w):
+    """The kernels' test of one sample: in-map flag and pixel corner."""
+    xp = np.float32(xn) * np.float32(w) - np.float32(0.5)
+    yp = np.float32(yn) * np.float32(h) - np.float32(0.5)
+    ok = bool(xp > -1 and yp > -1 and xp < w and yp < h)
+    return ok, (int(np.floor(xp)) if ok else 0), (int(np.floor(yp)) if ok else 0)
+
+
+def _r4_brute(x, y, dim):
+    """One product per (n, m, 256-query tile, level, 64-key chunk) that an
+    in-map corner of the tile lands in, 2 x 256 x 64 x D FLOPs each."""
+    n, m, _, p, lq = x.shape
+    hit = set()
+    for b, mh, lid, pi, q in np.ndindex(n, m, len(COUNT_LEVELS), p, lq):
+        h, w = COUNT_LEVELS[lid]
+        ok, x0, y0 = _cells(x[b, mh, lid, pi, q], y[b, mh, lid, pi, q], h, w)
+        for cx, cy in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
+            if ok and 0 <= cx < w and 0 <= cy < h:
+                hit.add((b, mh, q // 256, lid, (cy * w + cx) // 64))
+    return len(hit) * 2 * 256 * 64 * dim
+
+
+def _fk_brute(x, y, dim):
+    """Per (n, m, point, 64 query rows, level, block of 64 / D rows h) that
+    an in-map y corner row of the rows falls in: the level's 16-deep K steps
+    over cx_all, 2 x 64 x 64 x 16 FLOPs each."""
+    n, m, _, p, lq = x.shape
+    steps, koff = [], 0
+    for h, w in COUNT_LEVELS:
+        steps.append(-(-(koff + w) // 16) - koff // 16)
+        koff += w
+    hit = set()
+    for b, mh, lid, pi, q in np.ndindex(n, m, len(COUNT_LEVELS), p, lq):
+        h, w = COUNT_LEVELS[lid]
+        ok, _, y0 = _cells(x[b, mh, lid, pi, q], y[b, mh, lid, pi, q], h, w)
+        for cy in (y0, y0 + 1):
+            if ok and 0 <= cy < h:
+                hit.add((b, mh, pi, q // 64, lid, cy // (64 // dim)))
+    return sum(steps[key[4]] for key in hit) * 2 * 64 * 64 * 16
+
+
+@pytest.mark.parametrize("dim", [32, 8])
+@pytest.mark.parametrize("kind", ["uniform", "few_chunks", "outside_and_nan"])
+@pytest.mark.parametrize("name", ["r4", "fk"])
+def test_mma_flop_count_matches_brute_force(name, kind, dim):
+    x, y = _count_inputs(kind)
+    count = {"r4": variants.r4_mma_flops, "fk": variants.fk_mma_flops}[name]
+    brute = {"r4": _r4_brute, "fk": _fk_brute}[name]
+    got = count(COUNT_LEVELS, torch.from_numpy(x), torch.from_numpy(y), dim)
+    assert got == brute(x, y, dim)
+    assert got > 0
+
+
+def test_mma_flop_counts_skip_untouched_products():
+    """Samples in a narrow band leave most chunks and column blocks out;
+    uniform ones touch nearly all of them."""
+    for name in ("r4", "fk"):
+        count = {"r4": variants.r4_mma_flops, "fk": variants.fk_mma_flops}[name]
+        few = count(COUNT_LEVELS, *map(torch.from_numpy, _count_inputs("few_chunks")), 32)
+        most = count(COUNT_LEVELS, *map(torch.from_numpy, _count_inputs("uniform")), 32)
+        assert 0 < 2 * few <= most
