@@ -27,13 +27,16 @@ exit, no result line) if it goes wrong:
                  with the tensor-core FLOPs they execute; the memory-fusion bicubic resize (two bf16
                  products) against the CPU, forward and gradient, timed
                  beside F.interpolate's bicubic at the train call; the Swin
-                 window attention (K7) at the four Video Swin-B serving calls with
+                 window attention (K7) at the four Video Swin-B serving calls
+                 (n = 245) and the four Swin-B train calls (n = 147, a
+                 ragged last row tile, whose rows are also held apart) with
                  and without the SW-MSA mask, at a 2D Swin (n = 49) call and
                  at its edges (n = 392, an odd n = 13), its autograd
                  Function's gradients against autograd through the plain
-                 version.  Each kernel's device time (the launches queue
-                 behind a sleep kernel, so the host's launch rate does not
-                 count), the plain version's, the bound and, for K7,
+                 version (serving stages 0 and 3, train stage 0).  Each
+                 kernel's device time (the launches queue behind a sleep
+                 kernel, so the host's launch rate does not count), the
+                 plain version's, the bound and, for K7,
                  scaled_dot_product_attention's, with the host's enqueue
                  time per call beside both.
 3. card       -- the small models on the card (through the kernels) against
@@ -41,9 +44,13 @@ exit, no result line) if it goes wrong:
                  TF32 off: the ResNet eval forward (both branches) and the
                  Video Swin eval forward (DAVIS branch) at the bounds of
                  tests/test_golden_parity.py, and one train step with dropout
-                 off (matched queries identical, every loss and grad_norm
-                 within 1e-3 relative, K1 and K2 each launched once per
-                 transformer layer).
+                 and stochastic depth off (matched queries identical, every
+                 loss and grad_norm within 1e-3 relative, K1 and K2 each
+                 launched once per transformer layer) of the ResNet model,
+                 of the Video Swin model (K7 once per block), of the Video
+                 Swin model with use_checkpoint (K7 twice per block: forward
+                 and recompute) and of the ResNet model with the BoxInst
+                 pairwise loss on a 3-frame clip.
 4. serve      -- the full-width YTVOS R101 model (ResNet-101, RoBERTa-base,
                  4+4 layers, bf16) behind ClipInferenceEngine, answering
                  uint8 requests of mixed sizes; every answer has its
@@ -68,18 +75,32 @@ exit, no result line) if it goes wrong:
 8. swin_a2d   -- the A2D eval forward with the Video Swin-B backbone on one
                  5 x 384 x 640 clip (bf16, valid_indices): K7 launched 24
                  times, K1 8 times.
-9. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
+9. swin_train -- the JAX bench's Swin-B train stage: ytvos_r101_boxsup
+                 with the Video Swin-B backbone, B=1, T=3, 512 x 640, bf16,
+                 dropout and stochastic depth on, the batch in the compact
+                 wire (uint8 frames and masks, float16 heatmaps), run as
+                 phase train runs, once without per-block recompute (path
+                 swin_train: K7 24 times a step) and once with it
+                 (swin_train_recompute: 48), K1 and K2 8 times each, the
+                 frozen text encoder bit-identical; ms/step, peak memory,
+                 and a profile with K7's forward and its plain recompute
+                 backward (the kernels under the Function's backward).
+10. resume    -- two train steps of the small model, a checkpoint save and a
+                 restore into a fresh model, optimizer and step: state dicts
+                 and generator state bit-identical to the saved ones, the
+                 next step's losses within 1e-3 relative on both sides.
+11. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
                  forward and backward at the train encoder call: K3 and K4
                  launched once each, the gradients finite.
-10. msda_bench -- the port's MSDA kernel bench in this process
+12. msda_bench -- the port's MSDA kernel bench in this process
                  (``ocpg_tpu_torch.scripts.bench_msda_kernel``, variants cm
                  r4 fk sep, --bwd, eval shapes, checked against sep): every
                  check within 2e-2, K1, K2, K5 and K6 each launched.
 
 Every launch counter (K1-K7) is reset just before each of the phases
-serve, a2d, train, swin_serve, swin_a2d, std_op and msda_bench runs its
-path and read just after; the ``kernels`` line gives each kernel's count
-on every path.
+serve, a2d, train, swin_serve, swin_a2d, swin_train (each of its two runs),
+resume, std_op and msda_bench runs its path and read just after; the
+``kernels`` line gives each kernel's count on every path.
 
 It imports nothing of JAX.  The last three lines of its output are the
 card's name and power limit (nvidia-smi), one JSON object listing the
@@ -89,8 +110,11 @@ kernels, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -101,6 +125,7 @@ import torch
 from ocpg_tpu_torch.config import (OCPGConfig, a2d_r101_boxsup, davis_videoswin_base,
                                    ytvos_r101_boxsup)
 from ocpg_tpu_torch.data.synthetic import synthetic_batch
+from ocpg_tpu_torch.engine.checkpoint import CheckpointManager
 from ocpg_tpu_torch.engine.infer import ClipInferenceEngine, InferRequest
 from ocpg_tpu_torch.engine.optim import build_optimizer, param_group_label
 from ocpg_tpu_torch.engine.train import make_train_step
@@ -134,6 +159,12 @@ SWIN_T, SWIN_WINDOW, SWIN_HEAD_DIM = 5, (8, 7, 7), 32
 SWIN_GRIDS = ((96, 160), (48, 80), (24, 40), (12, 20))
 SWIN_HEADS = (4, 8, 16, 32)
 SWIN_B_BLOCKS = 24
+# Swin-B train path (one 3 x 512 x 640 clip): the window clamps to T = 3,
+# n = 147 = 9 x 16 + 3, so the tensor-core body has a ragged last row tile;
+# windows per stage of a shifted block
+SWIN_TRAIN_T = 3
+SWIN_TRAIN_GRIDS = ((128, 160), (64, 80), (32, 40), (16, 20))
+SWIN_TRAIN_WINDOWS = (437, 120, 30, 9)
 # launch counters of the port's kernels: (name, module, attribute)
 COUNTERS = (("K1", msda, "launches"), ("K2", msda, "bwd_launches"),
             ("K3", msda, "std_launches"), ("K4", msda, "std_bwd_launches"),
@@ -564,20 +595,38 @@ def wattn_work(q, mask):
     return nbytes, 4 * bw * h * n * n * dh, l2_bytes
 
 
+def wattn_held(got, want, scale, dtype):
+    """(max |got - want|, within the limit, the limit): 1e-5 x scale for
+    float32 inputs, 2e-2 + 2e-2 x |want| for bfloat16 ones."""
+    err = (got - want).abs().max().item()
+    if dtype == torch.float32:
+        return err, err <= 1e-5 * scale, f"1e-5 x {scale:.3f}"
+    excess = ((got - want).abs() - 2e-2 * want.abs()).max().item()
+    return err, excess <= 2e-2, "2e-2 + 2e-2 x |out|"
+
+
 def wattn_kernel_checks(results):
-    """K7 at the four Video Swin-B serving calls (n = 245, dh = 32), a 2D
-    Swin call (n = 49) and the kernel's edges (the largest window, n = 392,
-    of an 8-frame clip; a small odd n = 13 with 2 heads), each with the
-    shifted block's SW-MSA mask and without, against the plain version on
-    the same values in float32: within 1e-5 x max |out| for float32 inputs,
-    and within the 2e-2 (absolute + relative) bound of
-    tests/test_window_attention_pallas.py for bfloat16 ones.  The mask is
-    handed over in q's type, as the Swin module does.  Then the autograd
-    Function's gradients, and times."""
+    """K7 at the four Video Swin-B serving calls (n = 245, dh = 32), the
+    four Swin-B train calls (n = 147), a 2D Swin call (n = 49) and the
+    kernel's edges (the largest window, n = 392, of an 8-frame clip; a small
+    odd n = 13 with 2 heads), each with the shifted block's SW-MSA mask and
+    without, against the plain version on the same values in float32:
+    within 1e-5 x max |out| for float32 inputs, and within the 2e-2
+    (absolute + relative) bound of tests/test_window_attention_pallas.py for
+    bfloat16 ones; where n is not a multiple of 16 the rows of the last,
+    ragged row tile are also held apart.  The mask is handed over in q's
+    type, as the Swin module does.  Then the autograd Function's gradients
+    (serving stages 0 and 3, train stage 0), and times."""
     import torch.nn.functional as F
 
     calls = [(f"swin-B stage {s}",) + swin_call(SWIN_GRIDS[s], SWIN_HEADS[s])
              for s in range(4)]
+    calls += [(f"swin-B train stage {s}",)
+              + swin_call(SWIN_TRAIN_GRIDS[s], SWIN_HEADS[s], frames=SWIN_TRAIN_T)
+              for s in range(4)]
+    check([c[1:4] for c in calls[4:8]] == [(bw, h, 147) for bw, h in
+                                           zip(SWIN_TRAIN_WINDOWS, SWIN_HEADS)],
+          f"Swin-B train calls {[c[1:4] for c in calls[4:8]]}")
     calls.append(("swin2d-B stage 1 (1 frame)",)
                  + swin_call((48, 80), 8, window=(1, 7, 7), frames=1))
     calls.append(("swin-B stage 1, 8 frames",)
@@ -594,16 +643,20 @@ def wattn_kernel_checks(results):
                 torch.cuda.synchronize()
                 want = wattn.window_attention_reference(q.float(), k.float(), v.float(),
                                                         bias.float(), mask)
-                err = (got - want).abs().max().item()
                 scale = want.abs().max().item()
-                if dtype == torch.float32:
-                    ok, limit = err <= 1e-5 * scale, f"1e-5 x {scale:.3f}"
-                else:
-                    excess = ((got - want).abs() - 2e-2 * want.abs()).max().item()
-                    ok, limit = excess <= 2e-2, "2e-2 + 2e-2 x |out|"
+                err, ok, limit = wattn_held(got, want, scale, dtype)
                 check(math.isfinite(err) and ok,
                       f"K7 {label} {dtype}: max |kernel - plain| {err} (limit {limit})")
-                log(f"kernel wattn {label} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                tail = ""
+                if n % 16:
+                    # the rows of the last, ragged 16-row tile
+                    t_err, t_ok, _ = wattn_held(got[:, n - n % 16:], want[:, n - n % 16:],
+                                                scale, dtype)
+                    check(math.isfinite(t_err) and t_ok,
+                          f"K7 {label} {dtype}: rows {n - n % 16}..{n - 1} "
+                          f"{t_err} (limit {limit})")
+                    tail = f", last {n % 16} rows {t_err:.3e}"
+                log(f"kernel wattn {label} {str(dtype)[6:]}: max_abs_err {err:.3e}{tail} "
                     f"(limit {limit})")
             # times in bf16, the serving type: the kernel alone (bias and
             # mask already in q's type), the plain version, and
@@ -639,8 +692,8 @@ def wattn_kernel_checks(results):
 
     # the Function's gradients (plain recompute, as the JAX custom VJP)
     # against autograd through the plain version, float32, with the mask
-    for stage in (0, 3):
-        _, bw, heads, n, mask_np = calls[stage]
+    for idx in (0, 3, 4):
+        stage, bw, heads, n, mask_np = calls[idx]
         mask = torch.from_numpy(mask_np).cuda()
         gen = torch.Generator(device="cuda").manual_seed(12)
         qkv0 = torch.randn(bw, n, 3, heads, SWIN_HEAD_DIM, generator=gen, device="cuda")
@@ -656,10 +709,12 @@ def wattn_kernel_checks(results):
         for gname, a, b in zip(("d_qkv", "d_bias"), *grads):
             e, sc = (a - b).abs().max().item(), b.abs().max().item()
             check(math.isfinite(e) and e <= 1e-5 * sc,
-                  f"K7 Function {gname} at stage {stage}: {e} > 1e-5 x {sc}")
-            log(f"kernel wattn Function backward stage {stage} {gname}: max_abs_err "
+                  f"K7 Function {gname} at {stage}: {e} > 1e-5 x {sc}")
+            log(f"kernel wattn Function backward {stage} {gname}: max_abs_err "
                 f"{e:.3e} (limit 1e-5 x {sc:.4g})")
     results["wattn"] = report[next(iter(report))]       # stage 0, masked
+    results["wattn_train"] = next(v for k, v in report.items()
+                                  if k.startswith("swin-B train stage 0"))
     results["wattn_report"] = report
 
 
@@ -725,18 +780,27 @@ def phase_card():
             check(err <= 5e-3, f"{label} pred_masks: card vs cpu {err} > 5e-3 (scaled)")
             log(f"card {label} pred_masks: max |card - cpu| / max |mask| {err:.2e} "
                 f"(limit 5e-3); launches {counts}")
-        card_train_step()
+        # (config, frames, K7 launches per step: one per Swin block in the
+        # forward, again in the recompute)
+        small = SMALL.replace(dataset_file="ytvos")
+        swin = small.replace(backbone="video_swin_test")
+        for cfg, frames, k7 in ((small, 2, 0), (swin, 2, 5),
+                                (swin.replace(use_checkpoint=True), 2, 10),
+                                (small.replace(pairwise_loss=True), 3, 0)):
+            card_train_step(cfg, frames, k7)
     finally:
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def card_train_step():
-    """The small model's train step (dropout off) on the card against the
-    CPU: matched queries identical, every loss and grad_norm within 1e-3
-    relative, K1 and K2 each launched once per transformer layer."""
-    cfg = SMALL.replace(dataset_file="ytvos")
-    batch = synthetic_batch(np.random.default_rng(5), batch=1, frames=2, height=128,
+def card_train_step(cfg, frames, k7):
+    """The small model's train step (dropout and stochastic depth off) on
+    the card against the CPU: matched queries identical, every loss and
+    grad_norm within 1e-3 relative, K1 and K2 each launched once per
+    transformer layer, K7 ``k7`` times."""
+    label = (f"{cfg.backbone}{' use_checkpoint' if cfg.use_checkpoint else ''}"
+             f"{' pairwise' if cfg.pairwise_loss else ''} T={frames}")
+    batch = synthetic_batch(np.random.default_rng(5), batch=1, frames=frames, height=128,
                             width=192, text_len=8, vocab_size=cfg.text_vocab)
     cpu_model = build_model(cfg, device="cpu")
     perturb(cpu_model, seed=4)
@@ -752,26 +816,28 @@ def card_train_step():
                         targets={k: v.to(dev) for k, v in targets.items()}, train=True)
         matched.append(out["matched"].cpu())
     check(torch.equal(matched[0], matched[1]),
-          f"card train matched {matched[1].tolist()} != cpu {matched[0].tolist()}")
+          f"card train {label} matched {matched[1].tolist()} != cpu {matched[0].tolist()}")
     metrics = []
     for model in (cpu_model, gpu_model):
         step = make_train_step(model, criterion_config(cfg), build_weight_dict(cfg),
                                build_optimizer(model, cfg), deterministic=True)
-        msda.launches = msda.bwd_launches = 0
+        reset_counts()
         metrics.append(step(batch))
     torch.cuda.synchronize()
+    counts = read_counts()
     layers = cfg.enc_layers + cfg.dec_layers
-    check(msda.launches == layers and msda.bwd_launches == layers,
-          f"card train step launched K1 {msda.launches}, K2 {msda.bwd_launches} times "
-          f"(want {layers} each)")
+    check(counts == counts_of(K1=layers, K2=layers, K7=k7),
+          f"card train step {label} launched {counts} (want K1 and K2 {layers} times "
+          f"each, K7 {k7})")
     want, got = metrics
+    check(got.keys() == want.keys(), f"card train {label} metrics {sorted(got)}")
     worst = max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items())
     for k, v in want.items():
         check(abs(got[k] - v) <= 1e-3 * max(abs(v), 1e-6),
-              f"card train {k}: card {got[k]} vs cpu {v} (limit 1e-3 relative)")
-    log(f"card train step: matched {matched[0].tolist()} on both; {len(want)} metrics, "
-        f"max relative |card - cpu| {worst:.2e} (limit 1e-3); loss {got['loss']:.4f}, "
-        f"grad_norm {got['grad_norm']:.4f}; K1 x{layers}, K2 x{layers}")
+              f"card train {label} {k}: card {got[k]} vs cpu {v} (limit 1e-3 relative)")
+    log(f"card train step {label}: matched {matched[0].tolist()} on both; {len(want)} "
+        f"metrics, max relative |card - cpu| {worst:.2e} (limit 1e-3); loss "
+        f"{got['loss']:.4f}, grad_norm {got['grad_norm']:.4f}; launches {counts}")
 
 
 # ------------------------------------------------------------------- serve --
@@ -827,15 +893,16 @@ def phase_serve(results):
 
 
 def phase_swin_serve(results):
-    classes = serve_path(results, "swin_serve", davis_videoswin_base(), SWIN_B_BLOCKS)
-    if classes:
-        k7 = classes.get("wattn", 0.0)
+    prof = serve_path(results, "swin_serve", davis_videoswin_base(), SWIN_B_BLOCKS)
+    if prof:
+        k7 = prof["classes"].get("wattn", 0.0)
         log(f"swin_serve: K7 (wattn_fwd) {k7:.2f} ms = "
-            f"{100 * k7 / sum(classes.values()):.1f}% of a dispatch's device time; "
-            f"K1 {classes.get('msda', 0.0):.2f} ms")
+            f"{100 * k7 / prof['busy_ms']:.1f}% of a dispatch's device time; "
+            f"K1 {prof['classes'].get('msda', 0.0):.2f} ms")
 
 
 KERNEL_CLASSES = (   # (class, substrings of CUDA kernel names), first match wins
+    ("memcpy", ("memcpy",)),
     ("wattn", ("wattn_fwd",)),
     ("msda_cm_bwd", ("msda_bwd_kernel",)),
     ("msda", ("msda_fwd_kernel", "msda_r4_kernel", "msda_fk_kernel")),
@@ -854,8 +921,10 @@ KERNEL_CLASSES = (   # (class, substrings of CUDA kernel names), first match win
 
 def profile_run(label, fn):
     """fn() under torch.profiler: device busy share and device time by
-    kernel class and by kernel; returns the class times (ms), or None when
-    the profiler recorded no device time."""
+    kernel class and by kernel.  Returns {"classes": device ms by class,
+    "busy_ms": their sum, "wall_ms", "wattn_bwd_ms": the device ms of the
+    kernels launched under K7's Function backward (its plain recompute)},
+    or None when the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -889,7 +958,28 @@ def profile_run(label, fn):
         f"{c} {ms:.2f}" for c, ms in sorted(classes.items(), key=lambda kv: -kv[1])))
     for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"profile:   {ms:8.3f} ms  x{n:<5d} {name[:110]}")
-    return classes
+    return {"classes": classes, "busy_ms": busy_ms, "wall_ms": wall_ms,
+            "wattn_bwd_ms": device_ms_under(prof.events(), "WindowAttentionFunctionBackward")}
+
+
+def device_ms_under(events, name_part):
+    """Device ms of the kernels launched under the outermost CPU ranges
+    whose name contains ``name_part`` (autograd's backward node of an
+    autograd Function, whose nested backward runs inside it)."""
+    def nested(ev):
+        parent = ev.cpu_parent
+        while parent is not None:
+            if name_part in parent.name:
+                return True
+            parent = parent.cpu_parent
+        return False
+
+    us = 0.0
+    for ev in events:
+        if name_part in ev.name and not nested(ev):
+            total = getattr(ev, "device_time_total", None)
+            us += total if total is not None else getattr(ev, "cuda_time_total", 0)
+    return us / 1e3
 
 
 # --------------------------------------------------------------------- a2d --
@@ -935,49 +1025,66 @@ def phase_swin_a2d(results):
 
 
 # ------------------------------------------------------------------- train --
-def phase_train(results):
-    cfg = ytvos_r101_boxsup()
+def compact_wire(batch, rng):
+    """``batch`` in the compact wire of the JAX loader (``pad_to_canvas(
+    compact=True)``): uint8 RGB frames, uint8 binary masks, float16 heatmaps."""
+    out = dict(batch, samples=rng.integers(0, 256, batch["samples"].shape, dtype=np.uint8))
+    tg = dict(batch["targets"])
+    for k, dtype in (("masks", np.uint8), ("weights", np.float16), ("weak_masks", np.uint8)):
+        tg[k] = tg[k].astype(dtype)
+    out["targets"] = tg
+    return out
+
+
+def train_path(results, name, cfg, batch, k7):
+    """The full-width train step of ``cfg`` (forward, matcher, losses,
+    backward, clip, AdamW; dropout and stochastic depth on) on ``batch``:
+    after a warm-up step, one step launches K1 and K2 once per transformer
+    layer and K7 ``k7`` times, gives finite losses and grad norm, moves every
+    trained group and leaves the frozen parameters bit-identical; then
+    ms/step over 5 steps, peak memory, and one step under torch.profiler.
+    Returns the profile (profile_run)."""
     t0 = time.perf_counter()
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
     optimizer = build_optimizer(model, cfg)
     step = make_train_step(model, criterion_config(cfg), build_weight_dict(cfg), optimizer)
-    batch = synthetic_batch(np.random.default_rng(0), batch=1, frames=3, height=512,
-                            width=640)
-    log(f"train: built {cfg.backbone} + RoBERTa {cfg.text_layers}x{cfg.text_hidden}, "
-        f"{cfg.enc_layers}+{cfg.dec_layers} layers, {cfg.compute_dtype} compute, "
+    log(f"{name}: built {cfg.backbone}{' (use_checkpoint)' if cfg.use_checkpoint else ''} "
+        f"+ RoBERTa {cfg.text_layers}x{cfg.text_hidden}, {cfg.enc_layers}+{cfg.dec_layers} "
+        f"layers, {cfg.compute_dtype} compute, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
         f"{sum(len(g['params']) for g in optimizer.adamw.param_groups)} trained tensors "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {time.perf_counter() - t0:.1f} s; batch samples {batch['samples'].dtype}, "
+        f"heatmaps {batch['targets']['weights'].dtype}")
     step(batch)                              # warm-up: cuDNN plans, Adam state
     torch.cuda.synchronize()
 
-    labels = {name: param_group_label(cfg, name) for name, _ in model.named_parameters()}
-    before = {name: p.detach().clone() for name, p in model.named_parameters()}
+    labels = {n: param_group_label(cfg, n) for n, _ in model.named_parameters()}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
     reset_counts()
     metrics = step(batch)
     torch.cuda.synchronize()
     counts = read_counts()
-    k1, k2 = counts["K1"], counts["K2"]
     layers = cfg.enc_layers + cfg.dec_layers
-    check(counts == counts_of(K1=layers, K2=layers),
-          f"train step launched {counts} (want K1 and K2 {layers} times each, no other)")
-    results["paths"]["train"] = counts
+    check(counts == counts_of(K1=layers, K2=layers, K7=k7),
+          f"{name} step launched {counts} (want K1 and K2 {layers} times each, K7 {k7})")
+    results["paths"][name] = counts
     bad = [k for k, v in metrics.items() if not math.isfinite(v)]
-    check(not bad and metrics["finite"] == 1.0, f"train step: non-finite {bad}")
+    check(not bad and metrics["finite"] == 1.0, f"{name} step: non-finite {bad}")
     moved = {}
-    for name, p in model.named_parameters():
-        same = torch.equal(p.detach(), before[name])
-        if labels[name] == "frozen":
-            check(same, f"frozen parameter {name} changed")
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[n])
+        if labels[n] == "frozen":
+            check(same, f"{name}: frozen parameter {n} changed")
         else:
-            n_moved, n_all = moved.get(labels[name], (0, 0))
-            moved[labels[name]] = (n_moved + (not same), n_all + 1)
-    check(all(n > 0 for n, _ in moved.values()), f"trained groups did not move: {moved}")
+            n_moved, n_all = moved.get(labels[n], (0, 0))
+            moved[labels[n]] = (n_moved + (not same), n_all + 1)
+    check(all(m > 0 for m, _ in moved.values()), f"{name}: trained groups did not move: {moved}")
+    frozen = sorted({n.split(".")[0] for n, g in labels.items() if g == "frozen"})
     del before
-    log(f"train: one step, K1 x{k1}, K2 x{k2}; loss {metrics['loss']:.4f}, grad_norm "
+    log(f"{name}: one step, launches {counts}; loss {metrics['loss']:.4f}, grad_norm "
         f"{metrics['grad_norm']:.4f}, all {len(metrics)} metrics finite; tensors moved "
-        "by group: " + ", ".join(f"{g} {n}/{a}" for g, (n, a) in sorted(moved.items()))
-        + "; frozen ones bit-identical")
+        "by group: " + ", ".join(f"{g} {m}/{a}" for g, (m, a) in sorted(moved.items()))
+        + f"; frozen ones ({', '.join(frozen)}) bit-identical")
 
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -988,15 +1095,115 @@ def phase_train(results):
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = sum(times) / len(times)
-    log(f"train: B=1 T=3 512x640 step {ms:.2f} ms mean over {len(times)} (min "
-        f"{min(times):.2f}, max {max(times):.2f}; " + ", ".join(f"{t:.2f}" for t in times)
+    b, t, h, w = batch["samples"].shape[:4]
+    log(f"{name}: B={b} T={t} {h}x{w} step {ms:.2f} ms mean over {len(times)} (min "
+        f"{min(times):.2f}, max {max(times):.2f}; " + ", ".join(f"{x:.2f}" for x in times)
         + f"), peak memory {peak:.2f} GiB")
-    classes = profile_run("one train step (B=1, T=3, 512x640)", lambda: step(batch))
-    if classes:
-        total = sum(classes.values())
-        log(f"train: K2 (msda_cm_bwd) {classes.get('msda_cm_bwd', 0.0):.2f} ms = "
+    prof = profile_run(f"{name}: one train step (B={b}, T={t}, {h}x{w})", lambda: step(batch))
+    if prof:
+        classes, total = prof["classes"], prof["busy_ms"]
+        log(f"{name}: K2 (msda_cm_bwd) {classes.get('msda_cm_bwd', 0.0):.2f} ms = "
             f"{100 * classes.get('msda_cm_bwd', 0.0) / total:.1f}% of device time; "
             f"K1 {classes.get('msda', 0.0):.2f} ms")
+    return prof
+
+
+def phase_train(results):
+    batch = synthetic_batch(np.random.default_rng(0), batch=1, frames=3, height=512,
+                            width=640)
+    train_path(results, "train", ytvos_r101_boxsup(), batch, 0)
+
+
+def phase_swin_train(results):
+    """The JAX bench's Swin-B train stage (``ytvos_r101_boxsup`` with the
+    Video Swin-B backbone, B=1, T=3, 512x640, bf16), fed the compact wire:
+    without per-block recompute (K7 once per block) and with it (twice)."""
+    rng = np.random.default_rng(0)
+    batch = compact_wire(synthetic_batch(rng, batch=1, frames=3, height=512, width=640), rng)
+    cfg = ytvos_r101_boxsup().replace(backbone="video_swin_b_p4w7")
+    for name, use_checkpoint in (("swin_train", False), ("swin_train_recompute", True)):
+        prof = train_path(results, name, cfg.replace(use_checkpoint=use_checkpoint), batch,
+                          SWIN_B_BLOCKS * (2 if use_checkpoint else 1))
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not prof:
+            continue
+        classes, total = prof["classes"], prof["busy_ms"]
+        fwd, bwd = classes.get("wattn", 0.0), prof["wattn_bwd_ms"]
+        log(f"{name}: K7 forward (wattn_fwd, forward and recompute) {fwd:.2f} ms = "
+            f"{100 * fwd / total:.1f}%, K7 plain backward (the kernels under the "
+            f"Function's backward: bmm, softmax and its backward, casts) {bwd:.2f} ms = "
+            f"{100 * bwd / total:.1f}% of {total:.2f} device ms; copy/cast "
+            f"{classes.get('copy/cast', 0.0):.2f}, norm {classes.get('norm', 0.0):.2f}, "
+            f"gemm {classes.get('gemm', 0.0):.2f} ms")
+
+
+# ------------------------------------------------------------------ resume --
+def phase_resume(results):
+    """Two train steps of the small model (dropout on), a save, a restore
+    into a fresh model, optimizer and step: their state dicts and the
+    generator state bit-identical to the saved ones; then one more step on
+    each side, losses within 1e-3 relative (K2's float32 sums are atomic,
+    so their order changes from run to run)."""
+    cfg = SMALL.replace(dataset_file="ytvos")
+    batches = [synthetic_batch(np.random.default_rng(20 + i), batch=1, frames=2, height=128,
+                               width=192, text_len=8, vocab_size=cfg.text_vocab)
+               for i in range(3)]
+
+    def fresh(seed):
+        model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
+        optimizer = build_optimizer(model, cfg)
+        step = make_train_step(model, criterion_config(cfg), build_weight_dict(cfg),
+                               optimizer)
+        return {"model": model, "optimizer": optimizer, "train_step": step}
+
+    directory = os.path.join(_build.BUILD_DIR, "resume_checkpoint")
+    shutil.rmtree(directory, ignore_errors=True)
+    reset_counts()
+    run = fresh(0)
+    for batch in batches[:2]:
+        run["train_step"](batch)
+    CheckpointManager(directory).save(2, run)
+    resumed = fresh(1)
+    restored = CheckpointManager(directory).restore()
+    for name, obj in resumed.items():
+        obj.load_state_dict(restored[name])
+    for name in run:
+        want = run[name].state_dict()
+        same_tree(f"resume {name} (saved)", restored[name], want)
+        same_tree(f"resume {name} (loaded)", resumed[name].state_dict(), want)
+    count, at = resumed["optimizer"].count, resumed["train_step"].state["step"]
+    want = run["train_step"](batches[2])
+    got = resumed["train_step"](batches[2])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    layers = cfg.enc_layers + cfg.dec_layers
+    check(counts == counts_of(K1=4 * layers, K2=4 * layers), f"resume launched {counts}")
+    results["paths"]["resume"] = counts
+    worst = max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items())
+    check(worst <= 1e-3, f"resume: the next step's metrics differ by {worst} relative")
+    shutil.rmtree(directory)
+    log(f"resume: 2 steps, save, restore into fresh objects: model, optimizer (AdamW "
+        f"moments, count {count}), step counter {at} and generator state bit-identical; the "
+        f"next step's {len(want)} metrics within {worst:.2e} relative (limit 1e-3); "
+        f"launches {counts}")
+
+
+def same_tree(label, got, want):
+    """Tensors equal in type and bits, other leaves equal, keys equal."""
+    if isinstance(want, torch.Tensor):
+        check(isinstance(got, torch.Tensor) and got.dtype == want.dtype
+              and torch.equal(got.cpu(), want.cpu()), f"{label}: tensors differ")
+    elif isinstance(want, dict):
+        check(isinstance(got, dict) and got.keys() == want.keys(), f"{label}: keys differ")
+        for k in want:
+            same_tree(f"{label}/{k}", got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{label}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_tree(f"{label}/{i}", g, w)
+    else:
+        check(got == want, f"{label}: {got!r} != {want!r}")
 
 
 # ------------------------------------------------------------------ std_op --
@@ -1059,6 +1266,7 @@ def main() -> int:
     for name, fn in (("kernel", phase_kernel), ("card", lambda _: phase_card()),
                      ("serve", phase_serve), ("a2d", phase_a2d), ("train", phase_train),
                      ("swin_serve", phase_swin_serve), ("swin_a2d", phase_swin_a2d),
+                     ("swin_train", phase_swin_train), ("resume", phase_resume),
                      ("std_op", phase_std_op), ("msda_bench", phase_msda_bench)):
         t0 = time.perf_counter()
         fn(results)
@@ -1068,9 +1276,10 @@ def main() -> int:
     # kernel, by_call), K2, K3 and K4 at the train encoder (K2 and K4 also at
     # the serving encoder, the decoder calls and on clustered samples), K5 and K6 at the
     # serving encoder (the bench's eval call, and the train one), K7 at the
-    # Swin-B stage-0 call of a shifted block; launches counted on each
-    # path's run, the entry's own on its main path (train for K1 and K2,
-    # std_op for K3 and K4, msda_bench for K5 and K6, swin_serve for K7)
+    # Swin-B train stage-0 call of a shifted block (the serving one beside
+    # it); launches counted on each path's run, the entry's own on its main
+    # path (train for K1 and K2, std_op for K3 and K4, msda_bench for K5 and
+    # K6, swin_train for K7)
     def entry(name, source, replaces, k, counter, main_path, **extra):
         by_path = {path: counts[counter] for path, counts in results["paths"].items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1109,8 +1318,11 @@ def main() -> int:
                  for k in ("mma_gflop", "mma_bound_ms", "mma_tflops")},
               by_call=results["K6"], bench_ms=results["msda_bench"]["ms"]["fwd/fk/eval"]),
         entry("window_attention", "ocpg_tpu_torch/ops/csrc/window_attention_fwd.cu",
-              "ocpg_tpu/ops/window_attention_pallas.py:139", results["wattn"], "K7",
-              "swin_serve", at="swin-B stage 0, shifted block (bw=322, h=4, n=245, dh=32)",
+              "ocpg_tpu/ops/window_attention_pallas.py:139", results["wattn_train"], "K7",
+              "swin_train",
+              at="swin-B train stage 0, shifted block (bw=437, h=4, n=147, dh=32)",
+              serve_stage0=dict(results["wattn"], at="swin-B serving stage 0, shifted block "
+                                                     "(bw=322, h=4, n=245, dh=32)"),
               by_call=results["wattn_report"]),
     ]
     log("resize: " + json.dumps(results["resize"]))

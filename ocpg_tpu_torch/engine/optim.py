@@ -11,6 +11,8 @@ per parameter group with a multi-step schedule.
   (0.9, 0.999), eps 1e-8, the config's weight decay, and each group's lr
   times 0.1 at each boundary of ``lr_drop_steps``, counted in optimizer
   steps actually applied (optax's count, which a skipped step leaves).
+  Its ``state_dict`` holds AdamW's moments, that count and the LR
+  boundaries, so a restored optimizer takes the same next step.
 
 The ResNet stem and ``layer1`` are "frozen" yet keep ``requires_grad``:
 their gradients (through ``feat_4x`` into the mask refiner) enter the clip
@@ -93,6 +95,18 @@ class TrainOptimizer:
             group["lr"] = multistep_lr(group["base_lr"], self.lr_drop_steps, self.count)
         self.adamw.step()
         self.count += 1
+
+    def state_dict(self) -> Dict:
+        """AdamW's state (moments and step per parameter, groups), the
+        applied-step count and the LR boundaries; tensors are the live ones."""
+        return {"adamw": self.adamw.state_dict(), "count": self.count,
+                "lr_drop_steps": list(self.lr_drop_steps)}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Into an optimizer built over the same parameters and config."""
+        self.adamw.load_state_dict(state["adamw"])
+        self.count = int(state["count"])
+        self.lr_drop_steps = tuple(int(b) for b in state["lr_drop_steps"])
 
 
 def build_optimizer(model: nn.Module, cfg: OCPGConfig,

@@ -19,5 +19,6 @@ _CONFIGS = {
 }
 
 
-def build_swin_2d(arch: str) -> VideoSwin:
-    return VideoSwin(window_size=(1, 7, 7), num_frames=1, **_CONFIGS[arch])
+def build_swin_2d(arch: str, use_checkpoint: bool = False) -> VideoSwin:
+    return VideoSwin(window_size=(1, 7, 7), num_frames=1, use_checkpoint=use_checkpoint,
+                     **_CONFIGS[arch])

@@ -15,9 +15,13 @@ and the exact erf under float32.  Window attention is
 ``ops/window_attention.py``: the hand-written kernel (K7) on the GPU, the
 plain version on the CPU.
 
-Stochastic depth (``drop_path``) and gradient checkpointing belong to the
-train path and come with the Swin train slice: in training mode the
-backbone raises.
+In training mode each block drops its two residual branches per sample
+(stochastic depth, ``layers.DropPath``) at the rate ``linspace(0, 0.2,
+sum(depths))[block]``.  ``use_checkpoint`` recomputes each
+block in the backward (``torch.utils.checkpoint``, JAX's ``nn.remat``); the
+block's two keep masks are drawn before it and handed to it, so the
+recompute applies the masks the forward drew (checkpoint restores only the
+default generators, not the train step's).
 """
 
 from __future__ import annotations
@@ -29,11 +33,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.window_attention import window_attention
+from .layers import DropPath
 
 Window = Tuple[int, int, int]
 MLP_RATIO = 4       # every Swin configuration's
+DROP_PATH_RATE = 0.2    # the last block's stochastic-depth rate (the JAX default)
 
 
 def _get_window_size(dims, window_size, shift_size):
@@ -133,18 +140,22 @@ class WindowAttention3D(nn.Module):
 
 class SwinBlock3D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: Window = (8, 7, 7),
-                 shift: bool = False):
+                 shift: bool = False, drop_path: float = 0.0):
         super().__init__()
         self.window_size = tuple(window_size)
         self.shift = shift
+        self.drop_path = DropPath(drop_path)
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention3D(dim, num_heads, self.window_size)
         self.norm2 = LayerNorm(dim)
         self.mlp_fc1 = nn.Linear(dim, MLP_RATIO * dim)
         self.mlp_fc2 = nn.Linear(MLP_RATIO * dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, hh, ww_, c = x.shape              # x: (B, T, H, W, C)
+    def forward(self, x: torch.Tensor, keep_attn: Optional[torch.Tensor] = None,
+                keep_mlp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, T, H, W, C); keep_attn and keep_mlp are the two residual
+        branches' stochastic-depth masks (``drop_path.draw``), None to keep both."""
+        b, t, hh, ww_, c = x.shape
         shift = tuple(w // 2 for w in self.window_size) if self.shift else (0, 0, 0)
         ws, ss = _get_window_size((t, hh, ww_), self.window_size, shift)
 
@@ -166,11 +177,11 @@ class SwinBlock3D(nn.Module):
         attn = attn.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, tp, hp, wp, c)
         if any(ss):
             attn = torch.roll(attn, shifts=ss, dims=(1, 2, 3))
-        x = shortcut + attn[:, :t, :hh, :ww_]
+        x = shortcut + self.drop_path(attn[:, :t, :hh, :ww_], keep_attn)
 
         y = self.mlp_fc1(self.norm2(x))
         y = F.gelu(y, approximate="tanh" if y.dtype == torch.bfloat16 else "none")
-        return x + self.mlp_fc2(y)
+        return x + self.drop_path(self.mlp_fc2(y), keep_mlp)
 
 
 class PatchMerging(nn.Module):
@@ -196,18 +207,22 @@ class VideoSwin(nn.Module):
     the clip's T to ``forward``."""
 
     def __init__(self, embed_dim: int, depths: Tuple[int, ...], num_heads: Tuple[int, ...],
-                 window_size: Window = (8, 7, 7), num_frames: Optional[int] = None):
+                 window_size: Window = (8, 7, 7), num_frames: Optional[int] = None,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.embed_dim = embed_dim
         self.depths = tuple(depths)
         self.num_frames = num_frames
+        self.use_checkpoint = use_checkpoint
         self.patch_embed = nn.Conv2d(3, embed_dim, 4, stride=4)
         self.patch_norm = LayerNorm(embed_dim)
+        rates = np.linspace(0, DROP_PATH_RATE, sum(self.depths))
         for stage, (depth, heads) in enumerate(zip(self.depths, num_heads)):
             dim = embed_dim * 2 ** stage
             for i in range(depth):
                 setattr(self, f"stage{stage}_block{i}",
-                        SwinBlock3D(dim, heads, window_size, shift=(i % 2 == 1)))
+                        SwinBlock3D(dim, heads, window_size, shift=(i % 2 == 1),
+                                    drop_path=float(rates[sum(self.depths[:stage]) + i])))
             if stage < len(self.depths) - 1:
                 setattr(self, f"downsample{stage}", PatchMerging(dim))
 
@@ -216,10 +231,6 @@ class VideoSwin(nn.Module):
         return tuple(self.embed_dim * 2 ** i for i in range(len(self.depths)))
 
     def forward(self, frames: torch.Tensor, num_frames: Optional[int] = None):
-        if self.training:
-            raise NotImplementedError(
-                "the Swin backbones' train path (stochastic depth) comes with the "
-                "Swin train slice; run them in eval mode")
         t = self.num_frames or num_frames
         bt, _, hh, ww = frames.shape
         b = bt // t
@@ -232,7 +243,14 @@ class VideoSwin(nn.Module):
         outs = []
         for stage, depth in enumerate(self.depths):
             for i in range(depth):
-                x = getattr(self, f"stage{stage}_block{i}")(x)
+                block = getattr(self, f"stage{stage}_block{i}")
+                keep = (block.drop_path.draw(b, x.device), block.drop_path.draw(b, x.device))
+                if self.use_checkpoint and torch.is_grad_enabled():
+                    # the block draws nothing itself, so no generator state to restore
+                    x = checkpoint(block, x, *keep, use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = block(x, *keep)
             outs.append(x.reshape(b * t, *x.shape[2:]).permute(0, 3, 1, 2))
             if stage < len(self.depths) - 1:
                 x = getattr(self, f"downsample{stage}")(x)
@@ -248,5 +266,5 @@ _CONFIGS = {
 }
 
 
-def build_video_swin(arch: str) -> VideoSwin:
-    return VideoSwin(**_CONFIGS[arch])
+def build_video_swin(arch: str, use_checkpoint: bool = False) -> VideoSwin:
+    return VideoSwin(use_checkpoint=use_checkpoint, **_CONFIGS[arch])

@@ -6,7 +6,9 @@
 * masks: masked BCE against pseudo heatmaps (with the sigmoid-then-BCE-with-
   logits of the original), box-projection dice and the Chan-Vese level-set
   loss, at full and at 1/2 resolution, with a linear warmup over
-  ``lst_warmup_iters`` steps that shifts weight from the BCE to the level set.
+  ``lst_warmup_iters`` steps that shifts weight from the BCE to the level set;
+* with ``CriterionConfig.pairwise``, the BoxInst pairwise terms
+  (``models/pairwise.py``) at 1/2 resolution.
 
 The decoder layers are a Python loop (the JAX package vmaps them); the
 last layer's losses have no suffix, the others ``_{layer}``.  Targets are
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.image import bilinear_resize, nearest_resize
 from ..utils.box_ops import box_cxcywh_to_xyxy, generalized_box_iou_aligned
+from .pairwise import pairwise_losses
 
 Tensor = torch.Tensor
 
@@ -160,10 +163,6 @@ def loss_masks(cfg: CriterionConfig,
                tgt_boxes: Tensor,        # (B, T, 4) cxcywh normalised
                sizes: Tensor,            # (B, 2) actual (h, w)
                step: int) -> Dict[str, Tensor]:
-    if cfg.pairwise:
-        raise NotImplementedError(
-            "the BoxInst pairwise loss (ocpg_tpu/models/pairwise.py) is not ported "
-            "yet: it is queued in ROADMAP.md Queue 1 beside engine/checkpoint.py")
     b, t, im_h, im_w = pred_masks.shape
     s_lo = cfg.mask_out_stride_low
     st = s_lo // 2
@@ -198,6 +197,10 @@ def loss_masks(cfg: CriterionConfig,
         "loss_mask_low": (1.0 - warmup) * lm_low,
         "loss_lst_low": warmup * lst_low,
     }
+    if cfg.pairwise:
+        # the opt-in BoxInst terms at 1/2 resolution; the colors are the
+        # level-set features' image channels (normalised RGB at that scale)
+        out.update(pairwise_losses(pm_low, ls_features[..., :3], region_low))
     return out
 
 

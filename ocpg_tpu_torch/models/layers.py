@@ -8,11 +8,12 @@ Numerics: the model runs under ``torch.autocast`` when its compute dtype is
 bfloat16.  Where the JAX module pins float32, the port opens a float32
 island with ``float32_island`` and casts its inputs with ``.float()``.
 
-Dropout (``Dropout``) is active when the module is in training mode and
-draws its masks from the ``torch.Generator`` that the train step hands to
-the model (``set_dropout_generator``); in eval mode it is the identity, as
-JAX's ``deterministic=True``.  JAX's dropout bits cannot be reproduced, so
-the parity tests run with dropout off.
+Dropout (``Dropout``) and stochastic depth (``DropPath``) are active when
+the module is in training mode and draw their masks from the
+``torch.Generator`` that the train step hands to the model
+(``set_dropout_generator``); in eval mode they are the identity, as JAX's
+``deterministic=True``.  JAX's dropout bits cannot be reproduced, so the
+parity tests run with both off.
 """
 
 from __future__ import annotations
@@ -49,10 +50,35 @@ class Dropout(nn.Module):
                                                                   device=x.device))
 
 
+class DropPath(nn.Module):
+    """Stochastic depth at rate ``p``: one Bernoulli keep draw per sample,
+    shape ``(B, 1, 1, 1, 1)``, the kept branches scaled by ``1 / (1 - p)``
+    (the JAX Swin block's ``drop_path``).  ``draw`` and the application are
+    apart so that a caller can draw before a recomputed region and hand the
+    same mask to the forward and to its recompute."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def draw(self, batch: int, device: torch.device) -> Optional[torch.Tensor]:
+        """The (B, 1, 1, 1, 1) keep mask, or None where the module is the identity."""
+        if not self.training or self.p == 0.0:
+            return None
+        return torch.rand((batch, 1, 1, 1, 1), generator=self.generator,
+                          device=device) < 1.0 - self.p
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+        if keep is None:
+            return x
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
 def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Make every ``Dropout`` under ``module`` draw from ``generator``."""
+    """Make every ``Dropout`` and ``DropPath`` under ``module`` draw from ``generator``."""
     for mod in module.modules():
-        if isinstance(mod, Dropout):
+        if isinstance(mod, (Dropout, DropPath)):
             mod.generator = generator
 
 

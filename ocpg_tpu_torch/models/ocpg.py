@@ -15,8 +15,9 @@ nearest x4 upsample, then one of three branches:
 
 With ``valid_indices`` (A2D / JHMDB) only the one annotated frame per clip
 goes on after the backbone.  The eval branches run under ``no_grad``.
-Dropout is active in training mode (``model.train()``); ``model.eval()``
-with ``train=True`` is the JAX model's ``deterministic=True``.
+Dropout, and the Swin backbones' stochastic depth, are active in training
+mode (``model.train()``); ``model.eval()`` with ``train=True`` is the JAX
+model's ``deterministic=True``.
 
 Inputs keep the JAX layouts: ``samples (B, T, H, W, 3)`` normalised frames
 and ``samples_mask (B, T, H, W)`` (True = padding).  Inside, feature maps
@@ -60,9 +61,9 @@ def build_backbone(cfg: OCPGConfig) -> nn.Module:
     if cfg.backbone in ("resnet50", "resnet101"):
         return build_resnet(cfg.backbone, cfg.dilation)
     if cfg.backbone.startswith("video_swin"):
-        return build_video_swin(cfg.backbone)
+        return build_video_swin(cfg.backbone, use_checkpoint=cfg.use_checkpoint)
     if cfg.backbone.startswith("swin"):
-        return build_swin_2d(cfg.backbone)
+        return build_swin_2d(cfg.backbone, use_checkpoint=cfg.use_checkpoint)
     raise NotImplementedError(cfg.backbone)
 
 

@@ -31,7 +31,8 @@ def test_port_has_the_slice_modules():
                  "models.deformable_transformer", "models.mask_head", "models.ocpg",
                  "models.build", "models.matcher", "models.criterion", "data.synthetic",
                  "data.transforms", "engine.infer", "engine.optim", "engine.train",
-                 "utils.weights", "utils.box_ops"):
+                 "utils.weights", "utils.box_ops", "models.pairwise", "data.loader",
+                 "engine.checkpoint"):
         assert f"ocpg_tpu_torch.{name}" in mods, name
 
 

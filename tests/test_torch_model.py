@@ -29,6 +29,8 @@ from ocpg_tpu_torch.engine.infer import ClipInferenceEngine, InferRequest
 from ocpg_tpu_torch.models.build import build_model
 from ocpg_tpu_torch.utils.weights import load_jax_params
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 B, T, H, W, LT = 1, 2, 192, 256, 8
 LOGIT_ATOL = 2e-3
 MASK_ATOL = 5e-3

@@ -34,6 +34,8 @@ from ocpg_tpu_torch.ops import ms_deform_attn_variants as variants
 from ocpg_tpu_torch.ops.ms_deform_attn import ms_deform_attn_cm_reference
 from ocpg_tpu_torch.scripts import bench_msda_kernel
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 LEVEL_SETS = {
     "two_levels": ((6, 4), (3, 2)),
     "four_levels_to_1x1": ((8, 10), (4, 5), (2, 3), (1, 1)),

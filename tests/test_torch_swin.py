@@ -32,6 +32,7 @@ from ocpg_tpu_torch.utils.weights import load_jax_params
 
 from tests.test_torch_model import LOGIT_ATOL, MASK_ATOL, _jax_cfg, port_config, \
     random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 B, T, H, W, LT = 1, 3, 128, 192, 8

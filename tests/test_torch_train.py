@@ -38,6 +38,7 @@ from ocpg_tpu_torch.utils import box_ops as p_box
 from ocpg_tpu_torch.utils.weights import _flatten, _port_key
 
 from tests.test_torch_model import _jax_cfg, port_config, random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 
@@ -146,14 +147,6 @@ def test_compute_criterion_matches_jax(step):
     warm = min(step / 100_000, 1.0)
     assert (float(losses["loss_mask"]) == 0.0) == (warm == 1.0)
     assert (float(losses["loss_lst"]) == 0.0) == (warm == 0.0)
-
-
-def test_criterion_refuses_the_pairwise_loss():
-    outputs, targets = _criterion_inputs(seed=1)
-    cfg = criterion_config(OCPGConfig(pairwise_loss=True))
-    with pytest.raises(NotImplementedError, match="pairwise"):
-        p_crit.compute_criterion(cfg, {}, {k: _t(v) for k, v in outputs.items()},
-                                 {k: _t(v) for k, v in targets.items()}, 0)
 
 
 # ------------------------------------------------------------- optimizer --

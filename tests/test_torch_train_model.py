@@ -43,6 +43,7 @@ from ocpg_tpu_torch.models.build import build_model, build_weight_dict, criterio
 from ocpg_tpu_torch.utils.weights import jax_to_state_dict, load_jax_params
 
 from tests.test_torch_model import _jax_cfg, port_config
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, T, H, W, LT = 1, 2, 96, 128, 8
 LOGIT_ATOL, MASK_ATOL = 2e-3, 5e-3
