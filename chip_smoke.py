@@ -89,17 +89,30 @@ exit, no result line) if it goes wrong:
                  restore into a fresh model, optimizer and step: state dicts
                  and generator state bit-identical to the saved ones, the
                  next step's losses within 1e-3 relative on both sides.
-11. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
+11. train_cli -- the port's train CLI (``ocpg_tpu_torch.cli.train``) in this
+                 process, as a user runs it: the full-width ytvos_r101_boxsup
+                 model (ResNet-101, bf16, canvas 512 x 640, B=1, T=3) on a
+                 seeded Ref-DAVIS tree of 8 frames at 720 x 1280 (JPEG frames
+                 written with PIL, palette-PNG masks written with zlib), one
+                 epoch, then --resume for a second: K1 and K2 8 times per
+                 step over every step of both runs, K3-K7 never, no cv2
+                 loaded, every logged loss finite, log.txt with epochs 0 and
+                 1, the latest checkpoint at 2 x 8 steps, the frozen ResNet
+                 stem and text encoder bit-identical to their init; steps/s,
+                 the data-wait share, the loader's batches/s alone, one
+                 compact batch's pinned copy (device ms), peak memory.
+12. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
                  forward and backward at the train encoder call: K3 and K4
                  launched once each, the gradients finite.
-12. msda_bench -- the port's MSDA kernel bench in this process
+13. msda_bench -- the port's MSDA kernel bench in this process
                  (``ocpg_tpu_torch.scripts.bench_msda_kernel``, variants cm
                  r4 fk sep, --bwd, eval shapes, checked against sep): every
                  check within 2e-2, K1, K2, K5 and K6 each launched.
 
 Every launch counter (K1-K7) is reset just before each of the phases
 serve, a2d, train, swin_serve, swin_a2d, swin_train (each of its two runs),
-resume, std_op and msda_bench runs its path and read just after; the
+resume, train_cli (each of its two runs), std_op and msda_bench runs its
+path and read just after; the
 ``kernels`` line gives each kernel's count on every path.
 
 It imports nothing of JAX.  The last three lines of its output are the
@@ -110,6 +123,7 @@ kernels, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -117,6 +131,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1189,6 +1204,173 @@ def phase_resume(results):
         f"launches {counts}")
 
 
+# --------------------------------------------------------------- train_cli --
+# the Ref-DAVIS tree of phase train_cli: one video of 8 frames at the native
+# YTVOS size, one expression, full masks (the card has no h5py, so no
+# Ref-YTVOS heatmaps; PERF.md section 4)
+CLI_FRAMES, CLI_H, CLI_W = 8, 720, 1280
+
+
+def palette_png(indices: np.ndarray) -> bytes:
+    """A palette PNG of (H, W) uint8 indices (index i colored (i, i, i)),
+    written with the standard library."""
+    import struct
+    import zlib
+
+    h, w = indices.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), indices], 1)   # filter 0
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+            + chunk(b"PLTE", np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes())
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_davis_tree(root):
+    """Seeded JPEG frames (PIL) and palette-PNG masks of an object that
+    moves across the frames, and the expression file."""
+    from PIL import Image
+
+    rng = np.random.default_rng(7)
+    video, frames = "vid0", [f"{i:05d}" for i in range(CLI_FRAMES)]
+    for sub in ("JPEGImages", "Annotations"):
+        os.makedirs(os.path.join(root, "train", sub, video))
+    base = np.kron(rng.random((CLI_H // 16, CLI_W // 16, 3)), np.ones((16, 16, 1)))
+    yy, xx = np.mgrid[0:CLI_H, 0:CLI_W]
+    for k, name in enumerate(frames):
+        cy, cx = 360 + 10 * k, 420 + 60 * k
+        obj = ((yy - cy) / 170.0) ** 2 + ((xx - cx) / 260.0) ** 2 <= 1.0
+        img = 180 * base + 40 * rng.random((CLI_H, CLI_W, 3))
+        img[obj] = 0.5 * img[obj] + [110, 20, 20]
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, "train", "JPEGImages", video, f"{name}.jpg"), quality=90)
+        with open(os.path.join(root, "train", "Annotations", video, f"{name}.png"), "wb") as f:
+            f.write(palette_png(obj.astype(np.uint8)))
+    os.makedirs(os.path.join(root, "meta_expressions", "train"))
+    with open(os.path.join(root, "meta_expressions", "train", "meta_expressions.json"),
+              "w") as f:
+        json.dump({"videos": {video: {"frames": frames, "expressions": {
+            "0": {"exp": "the red blob moving to the right", "obj_id": "1"}}}}}, f)
+
+
+def pinned_copy_ms(batch):
+    """Device ms of one compact batch's host-to-device copy from pinned
+    memory (cuda_times), and its bytes."""
+    from ocpg_tpu_torch.parallel.mesh import _map_arrays, _tensors
+
+    pinned = _map_arrays(batch, lambda x: torch.as_tensor(x).pin_memory())
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(pinned))
+    ms, _ = cuda_times(lambda: _map_arrays(pinned, lambda t: t.to("cuda", non_blocking=True)),
+                       iters=20)
+    return ms, nbytes
+
+
+def phase_train_cli(results):
+    """The port's train CLI in this process, as a user runs it: the
+    full-width ytvos_r101_boxsup model (ResNet-101, bf16, canvas 512 x 640,
+    B=1, T=3) on a seeded Ref-DAVIS tree of 720 x 1280 frames, one epoch,
+    then --resume for a second.  K1 and K2 8 times a step over every step of
+    both runs, K3-K7 never; every logged loss finite; log.txt with epochs 0
+    and 1; the latest checkpoint at 2 x steps per epoch; the frozen ResNet
+    stem and text encoder of the resumed model bit-identical to their init.
+    Also the loader alone (batches/s with its worker count and the host's
+    cores) and one compact batch's pinned copy."""
+    from ocpg_tpu_torch.cli import train as train_cli
+    from ocpg_tpu_torch.data.imageio import decoder
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="train_cli_", dir=_build.BUILD_DIR)
+    try:
+        tree, out = os.path.join(root, "davis"), os.path.join(root, "run")
+        t0 = time.perf_counter()
+        write_davis_tree(tree)
+        argv = ["--dataset_file", "davis", "--davis_path", tree, "--backbone", "resnet101",
+                "--supervision", "box", "--num_frames", "3", "--batch_size", "1",
+                "--output_dir", out, "--log_every", "1", "--tb_every", "0",
+                "--debug_images_every", "0"]
+        args = train_cli.get_args(argv + ["--epochs", "1"])
+        cfg = train_cli.make_config(args)
+        width = [f.name for f in dataclasses.fields(cfg)
+                 if f.name not in ("dataset_file", "epochs")]
+        check(all(getattr(cfg, k) == getattr(ytvos_r101_boxsup(), k) for k in width),
+              "train_cli: the CLI's config is not ytvos_r101_boxsup at full width")
+        dataset = train_cli.make_dataset(args, cfg)
+        loader = train_cli.make_loader(args, cfg, dataset)
+        steps = len(dataset) // cfg.batch_size
+        log(f"train_cli: Ref-DAVIS tree, {CLI_FRAMES} frames at {CLI_H}x{CLI_W}, "
+            f"{len(dataset)} clips, written in {time.perf_counter() - t0:.1f} s; decode "
+            f"{decoder()}")
+
+        # the loader alone: decode, transform and batch at 720p
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader.epoch(0)) + sum(1 for _ in loader.epoch(1))
+        secs = time.perf_counter() - t0
+        first = next(iter(loader.epoch(0)))
+        copy_ms, nbytes = pinned_copy_ms(first)
+        log(f"train_cli: loader alone {n} batches in {secs:.3f} s = {n / secs:.2f} "
+            f"batches/s, {loader.num_workers} worker threads on {os.cpu_count()} host "
+            f"cores [{smi}]")
+        log(f"train_cli: compact batch ({nbytes / 2**20:.2f} MiB) pinned host-to-device "
+            f"copy {copy_ms:.4f} device ms = {nbytes / copy_ms / 1e6:.2f} GB/s [{smi}]")
+
+        paths = {}
+        torch.cuda.reset_peak_memory_stats()
+        for run, extra in (("first", ["--epochs", "1"]),
+                           ("resumed", ["--epochs", "2", "--resume",
+                                        os.path.join(out, "checkpoints")])):
+            reset_counts()
+            t0 = time.perf_counter()
+            train_cli.main(argv + extra)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts == counts_of(K1=8 * steps, K2=8 * steps),
+                  f"train_cli {run} run of {steps} steps launched {counts} (want K1 and K2 "
+                  f"8 per step)")
+            check("cv2" not in sys.modules, "train_cli: the train path imported cv2")
+            paths[run] = counts
+            log(f"train_cli: {run} run, {steps} steps in {time.perf_counter() - t0:.1f} s "
+                f"(model build, loader and checkpoint included), launches {counts} [{smi}]")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        results["paths"]["train_cli"] = {k: paths["first"][k] + paths["resumed"][k]
+                                         for k in paths["first"]}
+
+        with open(os.path.join(out, "log.txt")) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+        check([r["epoch"] for r in lines] == [0, 1], f"train_cli log.txt epochs {lines}")
+        for r in lines:
+            check(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
+                  f"train_cli epoch {r['epoch']}: non-finite logged loss {r}")
+        latest = CheckpointManager(os.path.join(out, "checkpoints")).latest_step()
+        check(latest == 2 * steps, f"train_cli latest checkpoint {latest} != {2 * steps}")
+        saved = CheckpointManager(os.path.join(out, "checkpoints")).restore()["model"]
+        init = build_model(cfg, device="cpu").state_dict()
+        frozen = [k for k in init if k.startswith("text_encoder.") or (
+            k.startswith("backbone.") and param_group_label(cfg, k) == "frozen")]
+        changed = [k for k in frozen if not torch.equal(saved[k], init[k])]
+        check(frozen and not changed, f"train_cli: frozen tensors changed: {changed[:5]}")
+        moved = sum(not torch.equal(saved[k], init[k]) for k in init if k not in frozen)
+        check(moved > 0, "train_cli: no trained tensor moved")
+        for r in lines:
+            per_step = r["data_time_s"] + r["step_time_s"]
+            log(f"train_cli: epoch {r['epoch']}: {1 / per_step:.3f} steps/s over the loop "
+                f"(data_time_s {r['data_time_s']:.4f} = {100 * r['data_time_s'] / per_step:.1f}%"
+                f", step_time_s {r['step_time_s']:.4f}), epoch time_s {r['time_s']:.2f} "
+                f"with its checkpoint; mean loss {r['loss']:.4f} [{smi}]")
+        log(f"train_cli: peak memory {peak:.2f} GiB over both runs; {len(frozen)} frozen "
+            f"tensors (ResNet stem and layer1, text encoder) bit-identical to the init after "
+            f"the resume, {moved} others moved; latest checkpoint step {latest} [{smi}]")
+        results["train_cli"] = {"steps_per_epoch": steps, "peak_gib": peak,
+                                "loader_batches_per_s": n / secs, "pinned_copy_ms": copy_ms}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def same_tree(label, got, want):
     """Tensors equal in type and bits, other leaves equal, keys equal."""
     if isinstance(want, torch.Tensor):
@@ -1267,7 +1449,8 @@ def main() -> int:
                      ("serve", phase_serve), ("a2d", phase_a2d), ("train", phase_train),
                      ("swin_serve", phase_swin_serve), ("swin_a2d", phase_swin_a2d),
                      ("swin_train", phase_swin_train), ("resume", phase_resume),
-                     ("std_op", phase_std_op), ("msda_bench", phase_msda_bench)):
+                     ("train_cli", phase_train_cli), ("std_op", phase_std_op),
+                     ("msda_bench", phase_msda_bench)):
         t0 = time.perf_counter()
         fn(results)
         log(f"phase {name} ok in {time.perf_counter() - t0:.1f} s")

@@ -12,7 +12,7 @@ raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,3 +125,14 @@ def a2d_videoswin_tiny() -> OCPGConfig:
 
 def davis_videoswin_base() -> OCPGConfig:
     return OCPGConfig(backbone="video_swin_b_p4w7", dataset_file="davis", epochs=10)
+
+
+def apply_config_overrides(cfg: OCPGConfig, overrides_json: Optional[str]) -> OCPGConfig:
+    """Apply a ``--config_overrides`` JSON dict of field overrides (the
+    CLIs' flag).  An unknown key raises (``dataclasses.replace``), and so
+    does a key of the four JAX-only fields the port lacks."""
+    if not overrides_json:
+        return cfg
+    import json
+
+    return cfg.replace(**json.loads(overrides_json))

@@ -17,7 +17,8 @@ JAX's ``deterministic=True``.  The counter and the generator's state are
 the step's ``state_dict``, which a checkpoint holds beside the model's and
 the optimizer's (``engine/checkpoint.py``).
 
-The batch is the host dict of ``data/synthetic.py`` (and of the loaders):
+The batch is the host dict of ``data/synthetic.py`` (and of the loaders),
+or the same dict of tensors already on the device (``prefetch_to_mesh``):
 frames, bool padding masks, int32 token ids, and the targets dict.  Every
 array moves to the model's device as it is, so a compact batch (uint8
 frames and masks, float16 heatmaps) crosses to the device in its compact
@@ -42,8 +43,12 @@ from .optim import TrainOptimizer
 
 
 def _to_device(x, device: torch.device):
+    """Every leaf on ``device``: a tensor already there as it is (a batch
+    from ``parallel/mesh.py::prefetch_to_mesh``), anything else copied."""
     if isinstance(x, Mapping):
         return {k: _to_device(v, device) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.to(device, non_blocking=True)
     return torch.as_tensor(np.asarray(x)).to(device, non_blocking=True)
 
 

@@ -1,7 +1,9 @@
 """The PyTorch port and chip_smoke.py import nothing of JAX: the GPU machine
 has no JAX, and the port keeps its own copies of what it needs from
-ocpg_tpu.  Each import runs in a fresh interpreter, so this process's own
-JAX imports cannot hide one."""
+ocpg_tpu.  The data path, the CLI and the utilities import cv2, PIL and
+h5py only in the calls that need them, so importing them loads none of the
+three either.  Each import runs in a fresh interpreter, so this process's
+own imports cannot hide one."""
 import os
 import pkgutil
 import subprocess
@@ -32,20 +34,30 @@ def test_port_has_the_slice_modules():
                  "models.build", "models.matcher", "models.criterion", "data.synthetic",
                  "data.transforms", "engine.infer", "engine.optim", "engine.train",
                  "utils.weights", "utils.box_ops", "models.pairwise", "data.loader",
-                 "engine.checkpoint"):
+                 "engine.checkpoint", "data.categories", "data.imageio", "data.datasets",
+                 "data.refer", "data.refexp", "native.io", "parallel.mesh", "cli.train",
+                 "utils.logging", "utils.profiling"):
         assert f"ocpg_tpu_torch.{name}" in mods, name
 
 
-@pytest.mark.parametrize("group", ["port", "chip_smoke"])
+# modules of the data path, the train CLI and the utilities
+DATA_PATH = ["ocpg_tpu_torch." + m for m in (
+    "cli.train", "data.datasets", "data.loader", "data.transforms", "data.refexp",
+    "data.refer", "data.imageio", "native.io", "parallel.mesh", "utils.logging",
+    "utils.profiling", "utils.weights", "utils.box_ops")]
+NO_JAX = ("jax", "jaxlib", "flax", "optax", "transformers", "ocpg_tpu")
+
+
+@pytest.mark.parametrize("group", ["port", "chip_smoke", "data_path"])
 def test_imports_load_no_jax(group):
-    mods = _port_modules() if group == "port" else ["chip_smoke"]
+    mods = {"port": _port_modules(), "chip_smoke": ["chip_smoke"], "data_path": DATA_PATH}[group]
+    banned = NO_JAX + (("cv2", "PIL", "h5py") if group == "data_path" else ())
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                                    'transformers', 'ocpg_tpu'))\n"
+        f"             if k.split('.')[0] in {banned!r})\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
