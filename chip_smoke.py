@@ -50,7 +50,10 @@ exit, no result line) if it goes wrong:
                  of the Video Swin model (K7 once per block), of the Video
                  Swin model with use_checkpoint (K7 twice per block: forward
                  and recompute) and of the ResNet model with the BoxInst
-                 pairwise loss on a 3-frame clip.
+                 pairwise loss on a 3-frame clip; the ResNet A2D model's
+                 evaluate_a2d with the device postprocess on three batches
+                 (scores within 1e-3, masks equal except where the resized
+                 logit is within 1e-3 of 0).
 4. serve      -- the full-width YTVOS R101 model (ResNet-101, RoBERTa-base,
                  4+4 layers, bf16) behind ClipInferenceEngine, answering
                  uint8 requests of mixed sizes; every answer has its
@@ -101,18 +104,51 @@ exit, no result line) if it goes wrong:
                  stem and text encoder bit-identical to their init; steps/s,
                  the data-wait share, the loader's batches/s alone, one
                  compact batch's pinned copy (device ms), peak memory.
-12. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
+12. eval_cli  -- the port's A2D/JHMDB eval CLI (``ocpg_tpu_torch.cli.evaluate
+                 --dataset_file jhmdb``) in this process at full width (R101,
+                 bf16) with its defaults (device postprocess, f32 wire) on a
+                 seeded JHMDB tree (7 videos of PNG frames at 240 x 320, a
+                 scipy.io ``puppet_mask.mat`` each), batches of 2 with a
+                 padded tail, then again with ``--postprocess host``: K1 8
+                 per forward and nothing else, the A2D metric keys finite in
+                 [0, 1], the two dicts within 1e-6; clips/s, the host seconds
+                 in RLE encoding and in the metrics, one forward with its
+                 device postprocess (device ms) and the packed mask wire
+                 beside the float32 canvas.
+13. pretrain_cli -- the RefCOCO pretrain CLI (``cli.pretrain``) at full width,
+                 T = 1, batches of 2, one epoch of a seeded COCO tree (8 train
+                 and 4 val JPEGs at 480 x 640) with its val: K1 and K2 8 per
+                 step, K1 8 per val forward, every step's loss finite, the
+                 refcoco_{bbox,segm,coco_bbox}_* entries of log.txt finite,
+                 the checkpoint at the last step; steps/s, peak memory.
+14. infer_davis -- the Ref-DAVIS inference CLI (``cli.infer_davis``) with the
+                 Video Swin-B backbone (davis_videoswin_base, full width) at
+                 its defaults (clip_len 36, exact canvases, f32) on a seeded
+                 valid split (one video of 36 frames at 720 x 1280, two
+                 objects, eight expressions), then ``cli.eval_davis`` on each
+                 annotator: K1 8 and K7 24 per dispatch, every palette PNG at
+                 720 x 1280, both CSVs, J&F finite; requests/s and the share
+                 of the run outside the engine.
+15. infer_ytvos -- the Ref-YTVOS inference CLI (``cli.infer_ytvos``, R101 at
+                 full width) on a seeded valid split (12- and 4-frame videos
+                 at 720 x 1280), chunked (clip_len 3, global query selection)
+                 and whole-video (clip_len 0): K1 8 per dispatch, one query per
+                 expression after the re-run, every PNG of both runs, the two
+                 runs agreeing on at least 99% of pixels (share and re-run
+                 chunks recorded).
+16. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
                  forward and backward at the train encoder call: K3 and K4
                  launched once each, the gradients finite.
-13. msda_bench -- the port's MSDA kernel bench in this process
+17. msda_bench -- the port's MSDA kernel bench in this process
                  (``ocpg_tpu_torch.scripts.bench_msda_kernel``, variants cm
                  r4 fk sep, --bwd, eval shapes, checked against sep): every
                  check within 2e-2, K1, K2, K5 and K6 each launched.
 
 Every launch counter (K1-K7) is reset just before each of the phases
 serve, a2d, train, swin_serve, swin_a2d, swin_train (each of its two runs),
-resume, train_cli (each of its two runs), std_op and msda_bench runs its
-path and read just after; the
+resume, train_cli (each of its two runs), eval_cli (each of its two runs),
+pretrain_cli, infer_davis, infer_ytvos (each of its two runs), std_op and
+msda_bench runs its path and read just after; the
 ``kernels`` line gives each kernel's count on every path.
 
 It imports nothing of JAX.  The last three lines of its output are the
@@ -122,6 +158,7 @@ kernels, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -795,6 +832,7 @@ def phase_card():
             check(err <= 5e-3, f"{label} pred_masks: card vs cpu {err} > 5e-3 (scaled)")
             log(f"card {label} pred_masks: max |card - cpu| / max |mask| {err:.2e} "
                 f"(limit 5e-3); launches {counts}")
+        card_evaluate_a2d(inputs)
         # (config, frames, K7 launches per step: one per Swin block in the
         # forward, again in the recompute)
         small = SMALL.replace(dataset_file="ytvos")
@@ -806,6 +844,83 @@ def phase_card():
     finally:
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def card_evaluate_a2d(inputs):
+    """The small ResNet model's evaluate_a2d (device postprocess) on three
+    in-memory batches (the last padded) on the card and on the CPU: every
+    prediction's score within 1e-3, its packed-then-unpacked mask equal
+    except at pixels whose resized logit (CPU) is within 1e-3 of 0."""
+    from ocpg_tpu_torch.engine import evaluate
+    from ocpg_tpu_torch.evaluation.rle import rle_decode
+
+    cfg = SMALL.replace(dataset_file="a2d")
+    # perturbed weights (masks of both signs) with the class heads of the
+    # seeded init, whose prior keeps the scores off saturation at 1.0
+    cpu_model = build_model(cfg, device="cpu")
+    heads = {k: v.clone() for k, v in cpu_model.state_dict().items() if "class_embed" in k}
+    perturb(cpu_model, seed=2)
+    cpu_model.load_state_dict(heads, strict=False)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.default_rng(9)
+    batches = []
+    for i in range(3):
+        b = synthetic_batch(rng, batch=2, frames=2, height=128, width=192, text_len=8,
+                            with_valid_indices=True, vocab_size=cfg.text_vocab)
+        b["targets"]["size"] = np.asarray([[128, 192], [112, 160]], np.int32)
+        b["targets"]["orig_size"] = np.asarray([[240, 320], [100, 150 + 10 * i]], np.int32)
+        b["orig_masks"] = [(rng.random((1, h, w)) > 0.5).astype(np.uint8)
+                           for h, w in b["targets"]["orig_size"]]
+        batches.append(b)
+    batches[-1]["real_count"] = 1
+
+    class Batches:
+        def epoch(self, _):
+            yield from batches
+
+    got = {}
+    metrics = evaluate._metrics
+    for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        def keep(preds, gts, dev=dev):
+            got[dev] = preds
+            return metrics(preds, gts)
+        evaluate._metrics = keep
+        try:
+            reset_counts()
+            evaluate.evaluate_a2d(model, Batches(), device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = read_counts()
+        finally:
+            evaluate._metrics = metrics
+    check(counts == counts_of(K1=3 * (cfg.enc_layers + cfg.dec_layers)),
+          f"card evaluate_a2d launched {counts}")
+    logits = []
+    for b in batches:
+        out = evaluate._forward(cpu_model, b, torch.device("cpu"), True)["pred_masks"][:, 0]
+        for i in range(int(b.get("real_count", 2))):
+            (h, w), orig = b["targets"]["size"][i], tuple(b["targets"]["orig_size"][i])
+            logits.append(image.bilinear_resize(out[i:i + 1, :, :h, :w], orig)[0].numpy())
+    check(len(got["cpu"]) == len(got["cuda"]) == len(logits) * cfg.num_queries,
+          "card evaluate_a2d: prediction counts differ")
+    worst, flips, in_band, fg, total = 0.0, 0, 0, 0, 0
+    for k, (c, g) in enumerate(zip(got["cpu"], got["cuda"])):
+        worst = max(worst, abs(c["score"] - g["score"]))
+        want, have = rle_decode(c["rle"]), rle_decode(g["rle"])
+        diff = want != have
+        band = np.abs(logits[k // cfg.num_queries][k % cfg.num_queries]) < 1e-3
+        check(not (diff & ~band).any(), f"card evaluate_a2d: prediction {k} masks differ "
+                                        f"at {int((diff & ~band).sum())} pixels off the band")
+        flips += int(diff.sum())
+        in_band += int(band.sum())
+        fg += int(have.sum())
+        total += have.size
+    scores = [p["score"] for p in got["cuda"]]
+    check(worst <= 1e-3, f"card evaluate_a2d scores: max |card - cpu| {worst} > 1e-3")
+    log(f"card evaluate_a2d (device postprocess, 3 batches of 2, the last padded): "
+        f"{len(got['cuda'])} predictions, scores {min(scores):.4f}-{max(scores):.4f}, max "
+        f"|card - cpu| {worst:.2e} (limit 1e-3); {fg} of {total} mask pixels foreground, "
+        f"{flips} differ, {in_band} within 1e-3 of logit 0; launches {counts}")
 
 
 def card_train_step(cfg, frames, k7):
@@ -1230,31 +1345,48 @@ def palette_png(indices: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
-def write_davis_tree(root):
-    """Seeded JPEG frames (PIL) and palette-PNG masks of an object that
-    moves across the frames, and the expression file."""
+def write_davis_tree(root, split="train", frames=CLI_FRAMES, objects=1):
+    """Seeded JPEG frames (PIL) and palette-PNG masks of ``objects`` (1 or 2)
+    objects moving across ``frames`` frames, and the expression file: one
+    expression per object in the train split, 4 (one per annotator,
+    interleaved as Ref-DAVIS's ``obj_id * 4 + anno_id``) otherwise."""
     from PIL import Image
 
     rng = np.random.default_rng(7)
-    video, frames = "vid0", [f"{i:05d}" for i in range(CLI_FRAMES)]
+    video, names = "vid0", [f"{i:05d}" for i in range(frames)]
     for sub in ("JPEGImages", "Annotations"):
-        os.makedirs(os.path.join(root, "train", sub, video))
+        os.makedirs(os.path.join(root, split, sub, video))
     base = np.kron(rng.random((CLI_H // 16, CLI_W // 16, 3)), np.ones((16, 16, 1)))
     yy, xx = np.mgrid[0:CLI_H, 0:CLI_W]
-    for k, name in enumerate(frames):
-        cy, cx = 360 + 10 * k, 420 + 60 * k
+    for k, name in enumerate(names):
+        step = k * CLI_FRAMES / frames
+        cy, cx = 360 + 10 * step, 420 + 60 * step
         obj = ((yy - cy) / 170.0) ** 2 + ((xx - cx) / 260.0) ** 2 <= 1.0
         img = 180 * base + 40 * rng.random((CLI_H, CLI_W, 3))
+        ids = obj.astype(np.uint8)
+        if objects == 2:
+            obj2 = (((yy - 200 - 5 * step) / 120.0) ** 2
+                    + ((xx - 1000 + 40 * step) / 160.0) ** 2) <= 1.0
+            img[obj2] = 0.5 * img[obj2] + [20, 20, 110]
+            ids = np.where(obj, 1, np.where(obj2, 2, 0)).astype(np.uint8)
         img[obj] = 0.5 * img[obj] + [110, 20, 20]
         Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
-            os.path.join(root, "train", "JPEGImages", video, f"{name}.jpg"), quality=90)
-        with open(os.path.join(root, "train", "Annotations", video, f"{name}.png"), "wb") as f:
-            f.write(palette_png(obj.astype(np.uint8)))
-    os.makedirs(os.path.join(root, "meta_expressions", "train"))
-    with open(os.path.join(root, "meta_expressions", "train", "meta_expressions.json"),
+            os.path.join(root, split, "JPEGImages", video, f"{name}.jpg"), quality=90)
+        with open(os.path.join(root, split, "Annotations", video, f"{name}.png"), "wb") as f:
+            f.write(palette_png(ids))
+    captions = ("the red blob moving to the right", "the blue blob moving to the left")
+    if split == "train":
+        expressions = {str(o): {"exp": captions[o], "obj_id": str(o + 1)}
+                       for o in range(objects)}
+    else:
+        expressions = {str(o * 4 + a): {"exp": f"{captions[o]}, annotator {a}",
+                                        "obj_id": str(o + 1)}
+                       for o in range(objects) for a in range(4)}
+        expressions = dict(sorted(expressions.items(), key=lambda kv: int(kv[0])))
+    os.makedirs(os.path.join(root, "meta_expressions", split))
+    with open(os.path.join(root, "meta_expressions", split, "meta_expressions.json"),
               "w") as f:
-        json.dump({"videos": {video: {"frames": frames, "expressions": {
-            "0": {"exp": "the red blob moving to the right", "obj_id": "1"}}}}}, f)
+        json.dump({"videos": {video: {"frames": names, "expressions": expressions}}}, f)
 
 
 def pinned_copy_ms(batch):
@@ -1371,6 +1503,476 @@ def phase_train_cli(results):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- eval_cli --
+@contextlib.contextmanager
+def timed_calls(module, names, secs):
+    """Add the seconds spent in each ``module.<name>`` call to ``secs[name]``
+    while inside (the functions' own module globals, which their callers
+    look up at call time)."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    for n, fn in saved.items():
+        setattr(module, n, timed(n, fn))
+    try:
+        yield secs
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+# JHMDB's native frame size; videos and frames of the phase's tree
+JHMDB_H, JHMDB_W, JHMDB_VIDEOS, JHMDB_FRAMES = 240, 320, 7, 12
+
+
+def write_jhmdb_tree(root):
+    """A JHMDB-Sentences tree: PNG frames (PIL) of a moving ellipse and its
+    ``puppet_mask.mat`` (scipy.io.savemat), one sentence per video."""
+    import scipy.io
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:JHMDB_H, 0:JHMDB_W]
+    lines = ["video_id,query"]
+    for v in range(JHMDB_VIDEOS):
+        vid = f"vid{v}"
+        frames_dir = os.path.join(root, "Rename_Images", "catch", vid)
+        masks_dir = os.path.join(root, "puppet_mask", "catch", vid)
+        os.makedirs(frames_dir)
+        os.makedirs(masks_dir)
+        puppet = np.zeros((JHMDB_H, JHMDB_W, JHMDB_FRAMES), np.uint8)
+        for k in range(JHMDB_FRAMES):
+            obj = (((yy - 100 - 3 * k - 5 * v) / 60.0) ** 2
+                   + ((xx - 90 - 8 * k - 10 * v) / 40.0) ** 2) <= 1.0
+            img = 60 + 120 * rng.random((JHMDB_H, JHMDB_W, 3))
+            img[obj] = 0.4 * img[obj] + [140, 90, 30]
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(frames_dir, f"{k + 1:05d}.png"))
+            puppet[..., k] = obj
+        scipy.io.savemat(os.path.join(masks_dir, "puppet_mask.mat"), {"part_mask": puppet})
+        lines.append(f"{vid},a person {('catching', 'throwing')[v % 2]} a ball")
+    with open(os.path.join(root, "jhmdb_annotation.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+A2D_KEYS = ("mAP 0.5:0.95", "AP50", "AP75", "overall_iou", "mean_iou",
+            "P@0.5", "P@0.6", "P@0.7", "P@0.8", "P@0.9")
+
+
+def phase_eval_cli(results):
+    """``python -m ocpg_tpu_torch.cli.evaluate --dataset_file jhmdb`` in this
+    process at full width (R101, bf16) with the CLI's defaults (device
+    postprocess, f32), batches of 2 with a padded tail, then again with
+    ``--postprocess host``: K1 8 per forward and nothing else, the A2D
+    metric keys finite in [0, 1], the two dicts within 1e-6.  Clips/s, one
+    forward with its postprocess in device ms, the packed mask wire beside
+    the float32 canvas, the host seconds in RLE encoding and in the metrics."""
+    from ocpg_tpu_torch.cli import evaluate as evaluate_cli
+    from ocpg_tpu_torch.engine import evaluate
+    from ocpg_tpu_torch.models import postprocessors
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="eval_cli_", dir=_build.BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        write_jhmdb_tree(root)
+        log(f"eval_cli: JHMDB tree, {JHMDB_VIDEOS} videos of {JHMDB_FRAMES} PNG frames at "
+            f"{JHMDB_H}x{JHMDB_W}, written in {time.perf_counter() - t0:.1f} s")
+        argv = ["--dataset_file", "jhmdb", "--jhmdb_path", root, "--batch_size", "2"]
+        batches = -(-JHMDB_VIDEOS // 2)
+        metrics, kept = {}, []
+        run = evaluate.evaluate_a2d
+        for post in ("device", "host"):
+            secs = {}
+
+            def keep(model, loader, **kw):
+                kept.append((model, loader))
+                t0 = time.perf_counter()
+                try:
+                    return run(model, loader, **kw)
+                finally:
+                    secs["loop"] = time.perf_counter() - t0
+
+            evaluate.evaluate_a2d = keep
+            try:
+                with timed_calls(evaluate, ("rle_encode", "_metrics"), secs), \
+                        timed_calls(postprocessors, ("rle_encode",), secs):
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    metrics[post] = evaluate_cli.main(argv + ["--postprocess", post])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                evaluate.evaluate_a2d = run
+            counts = read_counts()
+            check(counts == counts_of(K1=8 * batches),
+                  f"eval_cli {post}: {batches} batches launched {counts} (want K1 8 a forward)")
+            results["paths"]["eval_cli" if post == "device" else "eval_cli_host"] = counts
+            m = metrics[post]
+            check(tuple(sorted(m)) == tuple(sorted(A2D_KEYS)), f"eval_cli keys {sorted(m)}")
+            check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
+                  f"eval_cli {post} metrics {m}")
+            rle_s, loop_s = secs.get("rle_encode", 0.0), secs["loop"]
+            log(f"eval_cli: --postprocess {post}: {JHMDB_VIDEOS} clips in {wall:.2f} s = "
+                f"{JHMDB_VIDEOS / wall:.2f} clips/s (model build included; the eval loop "
+                f"{loop_s:.2f} s = {JHMDB_VIDEOS / loop_s:.2f} clips/s); RLE encode "
+                f"{rle_s:.3f} s = {100 * rle_s / loop_s:.1f}% of the loop (native codec "
+                f"{native_rle()}), metrics {secs['_metrics']:.3f} s = "
+                f"{100 * secs['_metrics'] / loop_s:.1f}%; launches {counts} [{smi}]")
+        worst = max(abs(metrics["device"][k] - metrics["host"][k]) for k in A2D_KEYS)
+        check(worst <= 1e-6, f"eval_cli device vs host postprocess: {metrics}")
+        log(f"eval_cli: metrics {json.dumps(metrics['device'])}; device vs host postprocess "
+            f"max |diff| {worst:.2e} (limit 1e-6)")
+
+        # one forward with its postprocess, timed on the CLI's model and first batch
+        model, loader = kept[0]
+        batch = next(iter(loader.epoch(0)))
+        sizes = np.asarray(batch["targets"]["size"])
+        orig = np.asarray(batch["targets"]["orig_size"])
+        bucket = evaluate.output_bucket(orig)
+
+        def fwd_post():
+            out = evaluate._forward(model, batch, torch.device("cuda"), True)
+            return evaluate.device_postprocess(out["pred_masks"], sizes, orig, bucket)
+
+        dev_ms, host_ms = cuda_times(fwd_post, iters=5)
+        packed = fwd_post()
+        b, q, obh, obw8 = packed.shape
+        canvas_bytes = b * q * batch["samples"].shape[2] * batch["samples"].shape[3] * 4
+        log(f"eval_cli: one forward + device postprocess (B={b}, Q={q}, canvas "
+            f"{batch['samples'].shape[2]}x{batch['samples'].shape[3]}, bucket {obh}x{obw8 * 8}"
+            f"): {dev_ms:.2f} device ms, {host_ms:.2f} host ms to enqueue; mask wire "
+            f"{packed.numel()} B packed vs {canvas_bytes} B float32 canvas "
+            f"({canvas_bytes / packed.numel():.0f}x) [{smi}]")
+        results["eval_cli"] = {"forward_post_ms": dev_ms, "metrics": metrics["device"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def native_rle() -> bool:
+    from ocpg_tpu_torch.evaluation import rle
+
+    return rle._native_io() is not None
+
+
+# ------------------------------------------------------------ pretrain_cli --
+COCO_H, COCO_W, COCO_TRAIN, COCO_VAL = 480, 640, 8, 4
+
+
+def write_coco_tree(root):
+    """A COCO root of seeded PIL JPEGs (train2014/) with
+    instances_refcoco_{train,val}.json: one referred ellipse per image, its
+    polygon and box (tests/torch_data_fixtures.py::write_coco_tree's schema)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(13)
+    os.makedirs(os.path.join(root, "train2014"))
+    yy, xx = np.mgrid[0:COCO_H, 0:COCO_W]
+    for split, n in (("train", COCO_TRAIN), ("val", COCO_VAL)):
+        images, anns = [], []
+        for i in range(n):
+            name = f"{split}_{i}.jpg"
+            cy, cx = rng.uniform(150, 330), rng.uniform(150, 490)
+            ry, rx = rng.uniform(60, 120), rng.uniform(60, 140)
+            img = 50 + 150 * rng.random((COCO_H, COCO_W, 3))
+            obj = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+            img[obj] = 0.4 * img[obj] + [130, 40, 40]
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(root, "train2014", name), quality=90)
+            angles = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+            poly = np.stack([cx + rx * np.cos(angles), cy + ry * np.sin(angles)], 1)
+            images.append({"id": i, "file_name": name, "height": COCO_H, "width": COCO_W,
+                           "caption": f"the red {('oval', 'blob')[i % 2]} in the picture"})
+            anns.append({"id": i, "image_id": i, "category_id": 1,
+                         "bbox": [cx - rx, cy - ry, 2 * rx, 2 * ry],
+                         "segmentation": [poly.ravel().tolist()], "area": float(obj.sum()),
+                         "iscrowd": 0})
+        with open(os.path.join(root, f"instances_refcoco_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": 1, "name": "thing"}]}, f)
+
+
+def phase_pretrain_cli(results):
+    """``python -m ocpg_tpu_torch.cli.pretrain`` in this process at full width
+    (R101, bf16), ``--num_frames 1``, the default batch of 2, one epoch of a
+    seeded RefCOCO tree with its val: K1 and K2 8 per step, K1 8 per val
+    forward, every step's loss finite, log.txt's refcoco_{bbox,segm,
+    coco_bbox}_* finite, the checkpoint at the last step; steps/s, peak
+    memory."""
+    from ocpg_tpu_torch.cli import pretrain as pretrain_cli
+    from ocpg_tpu_torch.engine.train import TrainStep
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="pretrain_cli_", dir=_build.BUILD_DIR)
+    try:
+        tree, out = os.path.join(root, "coco"), os.path.join(root, "run")
+        t0 = time.perf_counter()
+        write_coco_tree(tree)
+        log(f"pretrain_cli: RefCOCO tree, {COCO_TRAIN} train and {COCO_VAL} val JPEGs at "
+            f"{COCO_H}x{COCO_W}, written in {time.perf_counter() - t0:.1f} s")
+        losses = []
+        step_call = TrainStep.__call__
+
+        def keep_loss(self, batch):
+            metrics = step_call(self, batch)
+            losses.append(metrics["loss"])
+            return metrics
+
+        TrainStep.__call__ = keep_loss
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            pretrain_cli.main(["--coco_path", tree, "--num_frames", "1", "--epochs", "1",
+                               "--output_dir", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            TrainStep.__call__ = step_call
+        counts = read_counts()
+        steps, val_batches = COCO_TRAIN // 2, COCO_VAL // 2
+        check(counts == counts_of(K1=8 * (steps + val_batches), K2=8 * steps),
+              f"pretrain_cli: {steps} steps and {val_batches} val batches launched {counts}")
+        results["paths"]["pretrain_cli"] = counts
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"pretrain_cli losses {losses}")
+        with open(os.path.join(out, "log.txt")) as f:
+            (rec,) = [json.loads(line) for line in f if line.strip()]
+        keys = [k for k in rec if k.startswith("refcoco_")]
+        for prefix in ("refcoco_bbox_", "refcoco_segm_", "refcoco_coco_bbox_"):
+            check(any(k.startswith(prefix) for k in keys), f"pretrain_cli: no {prefix}* in log")
+        check(all(math.isfinite(rec[k]) for k in keys) and math.isfinite(rec["loss"]),
+              f"pretrain_cli log {rec}")
+        latest = CheckpointManager(os.path.join(out, "checkpoints")).latest_step()
+        check(latest == steps, f"pretrain_cli latest checkpoint {latest} != {steps}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = rec["data_time_s"] + rec["step_time_s"]
+        log(f"pretrain_cli: {steps} steps (B=2, T=1, canvas 512x640) and {val_batches} val "
+            f"batches in {wall:.1f} s (two model builds and the checkpoint included); "
+            f"{1 / per_step:.3f} steps/s over the loop (data_time_s {rec['data_time_s']:.4f}, "
+            f"step_time_s {rec['step_time_s']:.4f}); losses {[round(v, 4) for v in losses]}; "
+            f"val {json.dumps({k: rec[k] for k in keys[:6]})}; peak memory {peak:.2f} GiB; "
+            f"launches {counts} [{smi}]")
+        results["pretrain_cli"] = {"steps_per_s": 1 / per_step, "peak_gib": peak}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------- infer_davis --
+DAVIS_INFER_FRAMES = 36
+
+
+def phase_infer_davis(results):
+    """``python -m ocpg_tpu_torch.cli.infer_davis --backbone video_swin_b_p4w7``
+    in this process (davis_videoswin_base at full width, bf16) at the CLI's
+    defaults (clip_len 36, exact buckets, f32) on a seeded valid split of
+    one video of 36 frames at 720 x 1280 with two objects and eight
+    expressions, then ``python -m ocpg_tpu_torch.cli.eval_davis`` on each
+    annotator's PNGs: K1 8 and K7 24 per dispatch, one palette PNG per
+    annotator and frame at 720 x 1280, both CSVs, J&F finite.  Requests/s
+    and the share of the run outside the engine."""
+    from ocpg_tpu_torch.cli import eval_davis as eval_davis_cli
+    from ocpg_tpu_torch.cli import infer_davis
+    from ocpg_tpu_torch.engine import infer as infer_engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="infer_davis_", dir=_build.BUILD_DIR)
+    try:
+        tree, out = os.path.join(root, "davis"), os.path.join(root, "out")
+        t0 = time.perf_counter()
+        write_davis_tree(tree, split="valid", frames=DAVIS_INFER_FRAMES, objects=2)
+        log(f"infer_davis: Ref-DAVIS valid tree, 1 video of {DAVIS_INFER_FRAMES} frames at "
+            f"{CLI_H}x{CLI_W}, 2 objects x 4 annotators, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        engines, secs = [], {}
+        init = infer_davis.init_engine
+
+        def keep(*args, **kwargs):
+            model, engine = init(*args, **kwargs)
+            engines.append(engine)
+            return model, engine
+
+        infer_davis.init_engine = keep
+        try:
+            with timed_calls(infer_engine.ClipInferenceEngine, ("run",), secs):
+                reset_counts()
+                t0 = time.perf_counter()
+                infer_davis.main(["--davis_path", tree, "--output_dir", out,
+                                  "--backbone", "video_swin_b_p4w7"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            infer_davis.init_engine = init
+        counts = read_counts()
+        (engine,) = engines
+        dispatches = engine.n_batches
+        check(dispatches == 8, f"infer_davis: {dispatches} dispatches, want 8 (2 x 4 x 1 chunk)")
+        check(counts == counts_of(K1=8 * dispatches, K7=SWIN_B_BLOCKS * dispatches),
+              f"infer_davis: {dispatches} dispatches launched {counts}")
+        results["paths"]["infer_davis"] = counts
+        from PIL import Image
+
+        names = [f"{i:05d}" for i in range(DAVIS_INFER_FRAMES)]
+        fg = 0
+        for a in range(4):
+            for name in names:
+                img = Image.open(os.path.join(out, "valid", f"anno_{a}", "vid0", f"{name}.png"))
+                check(img.mode == "P" and img.size == (CLI_W, CLI_H),
+                      f"infer_davis PNG {img.mode} {img.size}")
+                fg += int((np.asarray(img) > 0).sum())
+        jf = []
+        t0 = time.perf_counter()
+        for a in range(4):
+            res = os.path.join(out, "valid", f"anno_{a}")
+            summary = eval_davis_cli.main(["--davis_path", os.path.join(tree, "valid"),
+                                           "--results_path", res])
+            for csv in ("global_results-val.csv", "per-sequence_results-val.csv"):
+                check(os.path.exists(os.path.join(res, csv)), f"eval_davis wrote no {csv}")
+            check(math.isfinite(summary["J&F-Mean"]), f"eval_davis {summary}")
+            jf.append(summary["J&F-Mean"])
+        score_s = time.perf_counter() - t0
+        engine_s = secs["run"]
+        log(f"infer_davis: 8 requests of {DAVIS_INFER_FRAMES} frames in {wall:.2f} s = "
+            f"{8 / wall:.3f} requests/s ({8 * DAVIS_INFER_FRAMES / wall:.2f} frames/s; model "
+            f"build included); in the engine {engine_s:.2f} s, outside it (build, decode, "
+            f"resize, merge, PNGs) {wall - engine_s:.2f} s = "
+            f"{100 * (wall - engine_s) / wall:.1f}%; {engine.canvas_count} canvas; "
+            f"{fg} foreground label pixels; launches {counts} [{smi}]")
+        log(f"infer_davis: eval_davis J&F per annotator {[round(x, 4) for x in jf]} in "
+            f"{score_s:.2f} s (4 x {DAVIS_INFER_FRAMES} frames at {CLI_H}x{CLI_W})")
+        results["infer_davis"] = {"requests_per_s": 8 / wall, "jf": jf}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------- infer_ytvos --
+YTVOS_CLIP, YTVOS_VIDEOS = 3, (("vidL", 12), ("vidS", 4))
+
+
+def write_ytvos_valid(root):
+    """A Ref-YTVOS valid split of seeded 720 x 1280 JPEGs: a 12-frame video
+    (longer than the 3-frame clip) and a 4-frame one, two expressions each."""
+    from PIL import Image
+
+    rng = np.random.default_rng(17)
+    yy, xx = np.mgrid[0:CLI_H, 0:CLI_W]
+    meta = {"videos": {}}
+    for v, (video, n) in enumerate(YTVOS_VIDEOS):
+        d = os.path.join(root, "valid", "JPEGImages", video)
+        os.makedirs(d)
+        names = [f"{5 * i:05d}" for i in range(n)]
+        for k, name in enumerate(names):
+            obj = (((yy - 300 - 8 * k) / 150.0) ** 2
+                   + ((xx - 400 - 40 * k - 200 * v) / 220.0) ** 2) <= 1
+            img = 40 + 160 * rng.random((CLI_H, CLI_W, 3))
+            img[obj] = 0.4 * img[obj] + [20, 130, 40]
+            Image.fromarray(img.astype(np.uint8)).save(os.path.join(d, f"{name}.jpg"),
+                                                       quality=90)
+        meta["videos"][video] = {"frames": names, "expressions": {
+            "0": {"exp": "the green blob moving right"}, "1": {"exp": "the background"}}}
+    os.makedirs(os.path.join(root, "meta_expressions", "valid"))
+    with open(os.path.join(root, "meta_expressions", "valid", "meta_expressions.json"),
+              "w") as f:
+        json.dump(meta, f)
+
+
+def phase_infer_ytvos(results):
+    """``python -m ocpg_tpu_torch.cli.infer_ytvos`` in this process
+    (ytvos_r101_boxsup at full width, bf16) on a seeded valid split, chunked
+    (--clip_len 3, --query_select global) and whole-video (--clip_len 0):
+    K1 8 per dispatch, one query per expression after the re-run, every
+    Annotations/<video>/<exp>/<frame>.png of both runs at 720 x 1280, the
+    two runs' masks agreeing on at least 99% of pixels (the share recorded)."""
+    from ocpg_tpu_torch.cli import infer_davis, infer_ytvos
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="infer_ytvos_", dir=_build.BUILD_DIR)
+    try:
+        tree = os.path.join(root, "ytvos")
+        write_ytvos_valid(tree)
+        engines, picks = [], []
+        init, select = infer_davis.init_engine, infer_ytvos.select_global_queries
+
+        def keep(*args, **kwargs):
+            model, engine = init(*args, **kwargs)
+            engines.append(engine)
+            return model, engine
+
+        def keep_select(engine, requests, meta):
+            scores = list(engine.last_query_scores)
+            redo = select(engine, requests, meta)
+            picks.append((scores, [r.query_override for r in requests], meta, redo))
+            return redo
+
+        outs, runs = {}, {}
+        infer_ytvos.init_engine, infer_ytvos.select_global_queries = keep, keep_select
+        try:
+            for name, clip_len in (("chunked", YTVOS_CLIP), ("whole", 0)):
+                outs[name] = os.path.join(root, name)
+                reset_counts()
+                t0 = time.perf_counter()
+                runs[name] = infer_ytvos.main(["--ytvos_path", tree, "--output_dir",
+                                               outs[name], "--clip_len", str(clip_len)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+                dispatches = engines[-1].n_batches
+                check(counts == counts_of(K1=8 * dispatches),
+                      f"infer_ytvos {name}: {dispatches} dispatches launched {counts}")
+                results["paths"][f"infer_ytvos_{name}"] = counts
+                log(f"infer_ytvos: {name} (clip_len {clip_len or 'whole video'}): "
+                    f"{runs[name]['requests']} requests, {runs[name]['rerun']} chunks run "
+                    f"again, {dispatches} dispatches in {wall:.2f} s, launches {counts} [{smi}]")
+        finally:
+            infer_ytvos.init_engine, infer_ytvos.select_global_queries = init, select
+        # one query per expression: a chunk's own argmax, or the forced one
+        for scores, overrides, meta, _ in picks:
+            chosen = {}
+            for k, (exp_id, _) in enumerate(meta):
+                q = overrides[k] if overrides[k] >= 0 else int(scores[k].max(-1).argmax())
+                chosen.setdefault(exp_id, set()).add(q)
+            check(all(len(v) == 1 for v in chosen.values()),
+                  f"infer_ytvos: an expression's chunks use queries {chosen}")
+        from PIL import Image
+
+        same = total = 0
+        for video, n in YTVOS_VIDEOS:
+            for exp_id in ("0", "1"):
+                for i in range(n):
+                    masks = [np.asarray(Image.open(os.path.join(
+                        outs[r], "Annotations", video, exp_id, f"{5 * i:05d}.png")))
+                        for r in ("chunked", "whole")]
+                    for m in masks:
+                        check(m.shape == (CLI_H, CLI_W) and set(np.unique(m)) <= {0, 255},
+                              f"infer_ytvos PNG {m.shape} {np.unique(m)}")
+                    same += int((masks[0] == masks[1]).sum())
+                    total += masks[0].size
+        check(same / total >= 0.99, f"infer_ytvos: chunked and whole-video masks agree "
+                                    f"on {same / total:.4f} of pixels (< 0.99)")
+        log(f"infer_ytvos: chunked (global query) and whole-video masks agree on "
+            f"{100 * same / total:.3f}% of {total} pixels")
+        results["infer_ytvos"] = {"agreement": same / total,
+                                  "rerun": runs["chunked"]["rerun"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def same_tree(label, got, want):
     """Tensors equal in type and bits, other leaves equal, keys equal."""
     if isinstance(want, torch.Tensor):
@@ -1449,7 +2051,9 @@ def main() -> int:
                      ("serve", phase_serve), ("a2d", phase_a2d), ("train", phase_train),
                      ("swin_serve", phase_swin_serve), ("swin_a2d", phase_swin_a2d),
                      ("swin_train", phase_swin_train), ("resume", phase_resume),
-                     ("train_cli", phase_train_cli), ("std_op", phase_std_op),
+                     ("train_cli", phase_train_cli), ("eval_cli", phase_eval_cli),
+                     ("pretrain_cli", phase_pretrain_cli), ("infer_davis", phase_infer_davis),
+                     ("infer_ytvos", phase_infer_ytvos), ("std_op", phase_std_op),
                      ("msda_bench", phase_msda_bench)):
         t0 = time.perf_counter()
         fn(results)

@@ -217,20 +217,26 @@ class ClipLoader:
         return batch
 
 
+def normalize_frames(samples: torch.Tensor, samples_mask: torch.Tensor) -> torch.Tensor:
+    """uint8 RGB frames -> ImageNet-normalised float32 on their device, with
+    the canvas padding (``samples_mask``) zeroed again in normalised space,
+    as the reference pads zeros after normalising; other frames as they are."""
+    if samples.dtype != torch.uint8:
+        return samples
+    mean = torch.from_numpy(IMAGENET_MEAN).to(samples.device)
+    std = torch.from_numpy(IMAGENET_STD).to(samples.device)
+    x = (samples.float() / 255.0 - mean) / std
+    return torch.where(samples_mask[..., None], 0.0, x)
+
+
 def decompress_batch(batch: Dict) -> Dict:
     """The compact wire's inverse, on the batch's own device: uint8 RGB
-    becomes ImageNet-normalised float32 with the canvas padding
-    (``samples_mask``) re-zeroed in normalised space, as the reference pads
-    zeros after normalising; non-float32 masks, weights and weak_masks become
-    float32.  A float32 batch comes back unchanged."""
+    becomes ImageNet-normalised float32 (``normalize_frames``); non-float32
+    masks, weights and weak_masks become float32.  A float32 batch comes
+    back unchanged."""
     b = dict(batch)
     t = dict(b["targets"])
-    s = b["samples"]
-    if s.dtype == torch.uint8:
-        mean = torch.from_numpy(IMAGENET_MEAN).to(s.device)
-        std = torch.from_numpy(IMAGENET_STD).to(s.device)
-        x = (s.float() / 255.0 - mean) / std
-        b["samples"] = torch.where(b["samples_mask"][..., None], 0.0, x)
+    b["samples"] = normalize_frames(b["samples"], b["samples_mask"])
     for k in ("masks", "weights", "weak_masks"):
         if k in t and t[k].dtype != torch.float32:
             t[k] = t[k].float()

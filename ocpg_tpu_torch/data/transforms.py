@@ -27,6 +27,12 @@ colors):
   path.  Bit-exact against cv2 5.0 on sources of two rows or more (a
   one-row source takes another path in cv2, within a few float32 steps of
   this one).
+* ``INTER_LINEAR`` on uint8 frames (``resize_linear_u8``, the inference
+  CLIs' frames): cv2's fixed-point path, 11-bit weights rounded from float32
+  fractions, an integer horizontal pass and the vertical pass of cv2's
+  vector code, ``((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16)``, plus 2,
+  shifted right by 2; the columns clamp with fraction 0, the rows clamp
+  and their fraction stays; exact.
 * ``RGB2HSV`` on uint8: cv2's integer arithmetic with its tables
   (``hsv_shift = 12``, ``sdiv_table``, ``hdiv_table180``); exact.
 * ``HSV2RGB`` on uint8 with H in [0, 180): float32 with two fused
@@ -122,6 +128,48 @@ def resize_linear(x: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return _lerp(np.take(tmp, np.clip(j, 0, h - 1), axis=1),
                  np.take(tmp, np.clip(j + 1, 0, h - 1), axis=1),
                  g.reshape((oh, 1) + (1,) * len(chan)))
+
+
+def _fixed_taps(src: int, dst: int, clamp: bool) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """cv2's uint8 INTER_LINEAR taps: the first source index and the two
+    11-bit weights per output index, from ``f = (d + 0.5) * scale - 0.5``
+    rounded to float32.  ``clamp`` (the columns) moves an index left of 0
+    or at or past the last one onto the border with fraction 0."""
+    f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    i = np.floor(f)
+    frac = (f - i).astype(np.float32)
+    i = i.astype(np.int64)
+    if clamp:
+        frac = np.where((i < 0) | (i >= src - 1), np.float32(0), frac)
+        i = np.clip(i, 0, src - 1)
+    one = np.float32(1)
+    scale = np.float32(2048)
+    w0 = np.rint((one - frac) * scale).astype(np.int32)
+    w1 = np.rint(frac * scale).astype(np.int32)
+    return i, w0, w1
+
+
+def resize_linear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)`` of one
+    (H, W, C) uint8 image (see the module docstring)."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_linear_u8 computes cv2's uint8 path; got {img.dtype}")
+    h, w = img.shape[:2]
+    oh, ow = size
+    if (oh, ow) == (h, w):
+        return img.copy()
+    x = img.astype(np.int32)        # 255 * 2048 and (r >> 4) * 2048 fit in int32
+    i, a0, a1 = _fixed_taps(w, ow, clamp=True)
+    chan = (1,) * (img.ndim - 2)
+    rows = (x[:, i] * a0.reshape((ow,) + chan)
+            + x[:, np.minimum(i + 1, w - 1)] * a1.reshape((ow,) + chan))
+    j, b0, b1 = _fixed_taps(h, oh, clamp=False)
+    r0 = rows[np.clip(j, 0, h - 1)] >> 4
+    r1 = rows[np.clip(j + 1, 0, h - 1)] >> 4
+    b0 = b0.reshape((oh, 1) + chan)
+    b1 = b1.reshape((oh, 1) + chan)
+    out = (((r0 * b0) >> 16) + ((r1 * b1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def _lerp(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:

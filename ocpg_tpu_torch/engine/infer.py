@@ -24,12 +24,29 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from ..data.loader import normalize_frames
 from ..models.build import resolve_device
 
 # /64-aligned canvases at the reference inference scale (Resize 360, max
 # 640): landscape (384, 640), square-ish (512, 640), portrait (640, 512)
 DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = ((384, 640), (512, 640), (640, 512))
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``: through pinned memory, asynchronously, on the GPU."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def readback(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``: into pinned memory, asynchronously, from the GPU
+    (wait on an event recorded after it before reading it)."""
+    if t.device.type == "cuda":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+    return t
 
 
 @dataclasses.dataclass
@@ -87,20 +104,6 @@ class ClipInferenceEngine:
         self._exact_fallback_warned = False
         self._canvases: set = set()
         self.n_batches = 0
-        self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)
-        self._std = torch.tensor(IMAGENET_STD, device=self.device)
-
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
-    def _readback(self, t: torch.Tensor) -> torch.Tensor:
-        if self.device.type == "cuda":
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            return host.copy_(t, non_blocking=True)
-        return t
 
     def _dispatch(self, requests, bucket, group):
         """Assemble, upload and enqueue one group's forward and readback."""
@@ -124,18 +127,16 @@ class ClipInferenceEngine:
             attn[j] = r.text_mask
             sizes[j] = (h, w)
             qov[j] = r.query_override
-        x = self._upload(samples)
-        m = self._upload(mask)
-        if x.dtype == torch.uint8:
-            xf = (x.float() / 255.0 - self._mean) / self._std
-            x = xf.masked_fill(m[..., None], 0.0)
-        out = self.model(x, m, self._upload(ids), self._upload(attn),
-                         self._upload(sizes), query_override=self._upload(qov))
-        ret = {"masks": self._readback(out["pred_masks"].to(self.out_dtype))}
+        dev = self.device
+        m = upload(mask, dev)
+        x = normalize_frames(upload(samples, dev), m)
+        out = self.model(x, m, upload(ids, dev), upload(attn, dev), upload(sizes, dev),
+                         query_override=upload(qov, dev))
+        ret = {"masks": readback(out["pred_masks"].to(self.out_dtype))}
         if self.want_ref_points:
-            ret["refs"] = self._readback(out["reference_points"])
+            ret["refs"] = readback(out["reference_points"])
         if self.want_query_scores:
-            ret["scores"] = self._readback(out["query_scores"])
+            ret["scores"] = readback(out["query_scores"])
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()

@@ -1,9 +1,11 @@
 """The PyTorch port and chip_smoke.py import nothing of JAX: the GPU machine
 has no JAX, and the port keeps its own copies of what it needs from
-ocpg_tpu.  The data path, the CLI and the utilities import cv2, PIL and
-h5py only in the calls that need them, so importing them loads none of the
-three either.  Each import runs in a fresh interpreter, so this process's
-own imports cannot hide one."""
+ocpg_tpu.  The data path, the CLIs, the eval engine, the metrics and the
+utilities import cv2, PIL and h5py only in the calls that need them, so
+importing them loads none of the three either (the inference CLIs run
+without cv2 unless ``--visualize``: tests/test_torch_infer_cli.py).  Each
+import runs in a fresh interpreter, so this process's own imports cannot
+hide one."""
 import os
 import pkgutil
 import subprocess
@@ -36,15 +38,25 @@ def test_port_has_the_slice_modules():
                  "utils.weights", "utils.box_ops", "models.pairwise", "data.loader",
                  "engine.checkpoint", "data.categories", "data.imageio", "data.datasets",
                  "data.refer", "data.refexp", "native.io", "parallel.mesh", "cli.train",
-                 "utils.logging", "utils.profiling"):
+                 "utils.logging", "utils.profiling", "evaluation", "evaluation.rle",
+                 "evaluation.a2d_metrics", "evaluation.refexp_metrics",
+                 "evaluation.coco_eval", "evaluation.davis_metrics", "evaluation.davis_eval",
+                 "models.postprocessors", "engine.evaluate", "utils.visualize",
+                 "cli.evaluate", "cli.eval_davis", "cli.pretrain", "cli.infer_davis",
+                 "cli.infer_ytvos"):
         assert f"ocpg_tpu_torch.{name}" in mods, name
 
 
-# modules of the data path, the train CLI and the utilities
+# modules of the data path, the CLIs, the eval engine, the metrics and the
+# utilities
 DATA_PATH = ["ocpg_tpu_torch." + m for m in (
     "cli.train", "data.datasets", "data.loader", "data.transforms", "data.refexp",
     "data.refer", "data.imageio", "native.io", "parallel.mesh", "utils.logging",
-    "utils.profiling", "utils.weights", "utils.box_ops")]
+    "utils.profiling", "utils.weights", "utils.box_ops", "evaluation",
+    "evaluation.rle", "evaluation.a2d_metrics", "evaluation.refexp_metrics",
+    "evaluation.coco_eval", "evaluation.davis_metrics", "evaluation.davis_eval",
+    "models.postprocessors", "engine.evaluate", "utils.visualize", "cli.evaluate",
+    "cli.eval_davis", "cli.pretrain", "cli.infer_davis", "cli.infer_ytvos")]
 NO_JAX = ("jax", "jaxlib", "flax", "optax", "transformers", "ocpg_tpu")
 
 
