@@ -136,10 +136,35 @@ exit, no result line) if it goes wrong:
                  expression after the re-run, every PNG of both runs, the two
                  runs agreeing on at least 99% of pixels (share and re-run
                  chunks recorded).
-16. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
+16. pretrained -- a reference-layout checkpoint at full width
+                 (tests/torch_replica.py's OCPGReplica with ResNet-101 and a
+                 RoBERTa-base config made here, seeded, saved as a .pth):
+                 ``load_pretrained_torch`` into the float32 ytvos_r101_boxsup
+                 model on the card sets every tensor to the checkpoint's;
+                 its eval forward on a padded 1 x 5 x 384 x 640 clip (K1 8
+                 times) against the replica's own forward on the card
+                 (grid_sample MSDA), TF32 off, logits, boxes and reference
+                 points within 2e-3, masks within 5e-3 of their scale;
+                 ``cli.tools convert_checkpoint``, then ``cli.infer_ytvos``
+                 with ``--checkpoint`` the .pth and the converted directory
+                 (``--tokenizer_path`` a toy vocabulary): identical PNGs;
+                 two steps of ``cli.train --pretrained_weights`` (K1 and K2
+                 8 per step; before the first step every tensor but the
+                 class heads is the checkpoint's); the toy vocabulary's ids
+                 on this machine's transformers equal to TOY_IDS; load and
+                 conversion seconds, the forward's device ms, peak memory.
+17. pseudo_labels -- the generator's --densecl path at full width: the
+                 replica's ResNet-101 body through ``convert_resnet`` into
+                 the sim model on the card and on the CPU,
+                 ``generate_for_frame`` on a seeded 320 x 576 frame with 3
+                 instances (one empty), without and with the CRF: centres
+                 equal, heat maps within 1e-3, each bbox query choice the
+                 CPU's or a tie within 1e-5; seconds per frame and the sim
+                 model's device ms.
+18. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
                  forward and backward at the train encoder call: K3 and K4
                  launched once each, the gradients finite.
-17. msda_bench -- the port's MSDA kernel bench in this process
+19. msda_bench -- the port's MSDA kernel bench in this process
                  (``ocpg_tpu_torch.scripts.bench_msda_kernel``, variants cm
                  r4 fk sep, --bwd, eval shapes, checked against sep): every
                  check within 2e-2, K1, K2, K5 and K6 each launched.
@@ -147,8 +172,9 @@ exit, no result line) if it goes wrong:
 Every launch counter (K1-K7) is reset just before each of the phases
 serve, a2d, train, swin_serve, swin_a2d, swin_train (each of its two runs),
 resume, train_cli (each of its two runs), eval_cli (each of its two runs),
-pretrain_cli, infer_davis, infer_ytvos (each of its two runs), std_op and
-msda_bench runs its path and read just after; the
+pretrain_cli, infer_davis, infer_ytvos (each of its two runs), pretrained
+(its forward, each infer_ytvos run and the train run), pseudo_labels,
+std_op and msda_bench runs its path and read just after; the
 ``kernels`` line gives each kernel's count on every path.
 
 It imports nothing of JAX.  The last three lines of its output are the
@@ -177,6 +203,7 @@ import torch
 from ocpg_tpu_torch.config import (OCPGConfig, a2d_r101_boxsup, davis_videoswin_base,
                                    ytvos_r101_boxsup)
 from ocpg_tpu_torch.data.synthetic import synthetic_batch
+from ocpg_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ocpg_tpu_torch.engine.checkpoint import CheckpointManager
 from ocpg_tpu_torch.engine.infer import ClipInferenceEngine, InferRequest
 from ocpg_tpu_torch.engine.optim import build_optimizer, param_group_label
@@ -189,17 +216,20 @@ from ocpg_tpu_torch.ops import image
 from ocpg_tpu_torch.ops import ms_deform_attn as msda
 from ocpg_tpu_torch.ops import ms_deform_attn_variants as msda_var
 from ocpg_tpu_torch.ops import window_attention as wattn
+from ocpg_tpu_torch.preprocess.sim_model import no_tf32
 from ocpg_tpu_torch.scripts import bench_msda_kernel
+from ocpg_tpu_torch.utils.hw import gpu_spec
 # the model's MSDA (M, D), the serving and train paths' levels and frames,
 # and the seeded MSDA inputs (uniform or clustered samples)
 from ocpg_tpu_torch.scripts.bench_msda_bwd import (HEAD_DIM, HEADS, SERVE_N, SERVE_SHAPES,
                                                    TRAIN_N, TRAIN_SHAPES, msda_inputs)
 
-# H100 SXM (NVIDIA's data sheet): HBM rate, float32 rate outside the tensor
-# cores, dense bf16 tensor-core rate
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+# the card's data-sheet peaks (utils/hw.py): HBM rate, float32 rate outside
+# the tensor cores, dense bf16 tensor-core rate
+SPEC = gpu_spec()
+HBM_BYTES_PER_S = SPEC.hbm_bytes_per_s
+F32_FLOPS_PER_S = SPEC.peak_flops_f32
+BF16_FLOPS_PER_S = SPEC.peak_flops_bf16
 # cycles per second of torch.cuda._sleep's spin (an SM clock at or above the
 # card's; a slower clock only lengthens the sleep)
 SLEEP_CYCLES_PER_S = 2.0e9
@@ -1990,6 +2020,410 @@ def same_tree(label, got, want):
         check(got == want, f"{label}: {got!r} != {want!r}")
 
 
+# -------------------------------------------------------------- pretrained --
+# the toy RoBERTa vocabulary of phase pretrained (and of the tokenizer's CPU
+# test): the special tokens, the 256 byte-level symbols and a few merges;
+# the ids and masks its tokenizer gives TOY_CAPTIONS at TOY_MAX_LEN, which
+# JAX's tokenizer gives too (tests/test_torch_pretrained.py)
+TOY_MERGES = (("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("Ġ", "r"), ("Ġr", "e"), ("Ġre", "d"),
+              ("i", "n"), ("Ġ", "b"), ("l", "o"), ("Ġb", "lo"), ("Ġblo", "b"))
+TOY_VOCAB_SIZE = 4 + 256 + len(TOY_MERGES) + 1
+TOY_CAPTIONS = ("the red blob moving to the right", "The blob in the water, left!", "a é")
+TOY_MAX_LEN = 12
+TOY_IDS = ((0, 87, 261, 265, 270, 224, 80, 82, 89, 266, 74, 2),
+           (0, 55, 261, 270, 224, 266, 262, 224, 90, 68, 87, 2),
+           (0, 68, 224, 131, 106, 2, 1, 1, 1, 1, 1, 1))
+TOY_MASK = ((1,) * 12, (1,) * 12, (1,) * 6 + (0,) * 6)
+
+
+def byte_symbols():
+    """The 256 symbols of byte-level BPE (GPT-2's bytes_to_unicode), in byte order
+    of the printable bytes first."""
+    printable = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+                 + list(range(ord("®"), ord("ÿ") + 1)))
+    others = [b for b in range(256) if b not in printable]
+    return [chr(b) for b in printable] + [chr(256 + n) for n in range(len(others))]
+
+
+def write_toy_vocab(directory):
+    """The toy vocabulary as a RoBERTa checkpoint holds its tokenizer:
+    vocab.json, merges.txt and the ``tokenizers`` library's tokenizer.json
+    (byte-level BPE, RoBERTa's <s> ... </s> post-processor, the special
+    tokens), in ``directory``."""
+    from tokenizers import AddedToken, Tokenizer, decoders, models, pre_tokenizers, processors
+
+    tokens = (["<s>", "<pad>", "</s>", "<unk>"] + byte_symbols()
+              + [a + b for a, b in TOY_MERGES] + ["<mask>"])
+    vocab = {t: i for i, t in enumerate(tokens)}
+    with open(os.path.join(directory, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(directory, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in TOY_MERGES))
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=list(TOY_MERGES)))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.post_processor = processors.RobertaProcessing(("</s>", 2), ("<s>", 0))
+    tok.decoder = decoders.ByteLevel()
+    tok.add_special_tokens([AddedToken(t, special=True) for t in ("<s>", "<pad>", "</s>", "<unk>")]
+                           + [AddedToken("<mask>", lstrip=True, special=True)])
+    tok.save(os.path.join(directory, "tokenizer.json"))
+
+
+def torch_replica():
+    """tests/torch_replica.py, imported from its file: a ``tests`` package
+    installed in site-packages would shadow the repo's ``tests`` directory,
+    which has no ``__init__.py``."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_replica.py")
+    spec = importlib.util.spec_from_file_location("torch_replica", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def full_width_replica(cfg, seed):
+    """tests/torch_replica.py's OCPGReplica (the reference checkpoint's key
+    layout) at ``cfg``'s widths with ResNet-101, on the CPU: PyTorch's and
+    transformers' default init under ``seed``, then seeded FrozenBN
+    statistics and affine terms."""
+    from transformers import RobertaConfig
+
+    replica_module = torch_replica()
+    FrozenBN2d, OCPGReplica = replica_module.FrozenBN2d, replica_module.OCPGReplica
+    text = RobertaConfig(vocab_size=cfg.text_vocab, hidden_size=cfg.text_hidden,
+                         num_hidden_layers=cfg.text_layers, num_attention_heads=cfg.text_heads,
+                         intermediate_size=cfg.text_ffn, max_position_embeddings=cfg.text_max_pos,
+                         type_vocab_size=1, pad_token_id=1, layer_norm_eps=1e-5)
+    torch.manual_seed(seed)
+    replica = OCPGReplica(text, resnet_layers=(3, 4, 23, 3), hidden=cfg.hidden_dim,
+                          heads=cfg.nheads, enc=cfg.enc_layers, dec=cfg.dec_layers,
+                          ffn=cfg.dim_feedforward, levels=cfg.num_feature_levels,
+                          points=cfg.dec_n_points, queries=cfg.num_queries,
+                          mask_ch=cfg.dynamic_mask_channels).eval()
+    g = torch.Generator().manual_seed(seed + 1)
+    for mod in replica.modules():
+        if isinstance(mod, FrozenBN2d):
+            n = mod.weight.numel()
+            mod.weight.copy_(1 + 0.1 * torch.randn(n, generator=g))
+            mod.bias.copy_(0.1 * torch.randn(n, generator=g))
+            mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+            mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    return replica
+
+
+def phase_pretrained(results):
+    """A reference-layout checkpoint at full width through every loader:
+    (a) ``load_pretrained_torch`` into the float32 ytvos_r101_boxsup model on
+    the card, its eval forward (K1) against the replica's own forward on
+    the card (grid_sample MSDA), TF32 off; (b) ``cli.tools
+    convert_checkpoint``, then ``cli.infer_ytvos`` with ``--checkpoint``
+    the .pth and the directory (and ``--tokenizer_path`` the toy
+    vocabulary): identical PNGs; (c) two steps of ``cli.train
+    --pretrained_weights``: before the first, the class heads are the
+    model's init and every other tensor is the checkpoint's; (d) the toy
+    vocabulary's ids on this machine's transformers."""
+    import transformers
+
+    from ocpg_tpu_torch.cli import infer_ytvos, tools
+    from ocpg_tpu_torch.cli import train as train_cli
+    from ocpg_tpu_torch.engine import train as engine_train
+    from ocpg_tpu_torch.engine.checkpoint import load_pretrained_torch
+    from ocpg_tpu_torch.utils.torch_weights import convert_ocpg, load_torch_file
+    from ocpg_tpu_torch.utils.weights import jax_to_state_dict
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="pretrained_", dir=_build.BUILD_DIR)
+    try:
+        cfg = ytvos_r101_boxsup().replace(compute_dtype="float32")
+        t0 = time.perf_counter()
+        replica = full_width_replica(cfg, seed=0)
+        pth = os.path.join(root, "ocpg_r101.pth")
+        torch.save({"model": replica.state_dict()}, pth)
+        log(f"pretrained: replica ({sum(t.numel() for t in replica.state_dict().values()) / 1e6:.1f}"
+            f"M values) built and saved in {time.perf_counter() - t0:.1f} s")
+
+        # (a) the loader and the converted forward
+        t0 = time.perf_counter()
+        sd = load_torch_file(pth)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, frozen = convert_ocpg(sd, backbone="resnet101")
+        convert_s = time.perf_counter() - t0
+        want = jax_to_state_dict({"params": params, "frozen": frozen})
+        model = build_model(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_pretrained_torch(model, pth, cfg, drop_class_heads=False)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        state = model.state_dict()
+        check(loaded == sorted(state), f"pretrained: {len(state) - len(loaded)} tensors not "
+                                       "loaded")
+        differ = [k for k in state if not torch.equal(state[k].cpu(),
+                                                      torch.from_numpy(want[k]))]
+        check(not differ, f"pretrained: tensors unlike the checkpoint's: {differ[:5]}")
+        log(f"pretrained: load_pretrained_torch {load_s:.2f} s ({len(loaded)} tensors, every "
+            f"one the checkpoint's; torch.load {read_s:.2f} s, convert_ocpg {convert_s:.2f} s "
+            f"on the host) [{smi}]")
+
+        batch = synthetic_batch(np.random.default_rng(5), batch=1, frames=5, height=384,
+                                width=640, vocab_size=cfg.text_vocab)
+        # padding on the right and at the bottom, and in the caption
+        batch["samples_mask"][..., -64:] = True
+        batch["samples_mask"][..., -32:, :] = True
+        batch["targets"]["size"][:] = (384 - 32, 640 - 64)
+        batch["text_ids"][:, -4:], batch["text_mask"][:, -4:] = 1, 0
+        args = [torch.from_numpy(batch[k]).cuda() for k in
+                ("samples", "samples_mask", "text_ids", "text_mask")]
+        args.append(torch.from_numpy(batch["targets"]["size"]).cuda())
+        rargs = (args[0].permute(0, 1, 4, 2, 3).contiguous(), args[1], args[2].long(),
+                 args[3].long(), args[4])
+        with no_tf32(), torch.no_grad():
+            reset_counts()
+            got = model(*args)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts == counts_of(K1=8), f"pretrained: one forward launched {counts}")
+            results["paths"]["pretrained"] = counts
+            fwd_ms, fwd_host_ms = cuda_times(lambda: model(*args), iters=5)
+            replica.to("cuda")
+            with torch.device("cuda"):     # the replica makes its tensors on the host
+                ref = replica(*rargs)
+            torch.cuda.synchronize()
+        del replica
+        check(all(bool(torch.isfinite(got[k]).all()) for k in got),
+              "pretrained: the converted forward is not finite")
+        for k in ("pred_logits", "pred_boxes", "reference_points"):
+            err = (got[k] - ref[k]).abs().max().item()
+            check(err <= 2e-3, f"pretrained {k}: port vs replica {err} > 2e-3")
+            log(f"pretrained {k}: max |port - replica| {err:.2e} (limit 2e-3)")
+        scale = max(ref["pred_masks"].abs().max().item(), 1e-3)
+        err = (got["pred_masks"] - ref["pred_masks"]).abs().max().item() / scale
+        check(err <= 5e-3, f"pretrained pred_masks: port vs replica {err} > 5e-3 (scaled)")
+        log(f"pretrained pred_masks: max |port - replica| / max |mask| {err:.2e} (limit "
+            f"5e-3); converted float32 forward 1x5x384x640 {fwd_ms:.2f} device ms "
+            f"({fwd_host_ms:.2f} host ms to enqueue), launches {counts} [{smi}]")
+        del model, got, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) convert_checkpoint, then infer_ytvos from the file and the directory
+        vocab = os.path.join(root, "vocab")
+        os.makedirs(vocab)
+        write_toy_vocab(vocab)
+        ckdir = os.path.join(root, "converted")
+        t0 = time.perf_counter()
+        tools.main(["convert_checkpoint", "--source", pth, "--output", ckdir,
+                    "--backbone", "resnet101"])
+        tool_s = time.perf_counter() - t0
+        tree = os.path.join(root, "ytvos")
+        write_ytvos_valid(tree)
+        pngs = {}
+        for name, ckpt in (("pth", pth), ("dir", ckdir)):
+            out = os.path.join(root, f"infer_{name}")
+            reset_counts()
+            runs = infer_ytvos.main(["--ytvos_path", tree, "--output_dir", out,
+                                     "--checkpoint", ckpt, "--tokenizer_path", vocab])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts["K1"] > 0 and counts["K1"] % 8 == 0
+                  and counts == counts_of(K1=counts["K1"]),
+                  f"pretrained infer_ytvos --checkpoint {name} launched {counts}")
+            results["paths"][f"pretrained_infer_{name}"] = counts
+            pngs[name] = {os.path.relpath(os.path.join(d, f), out): open(os.path.join(d, f),
+                                                                         "rb").read()
+                          for d, _, files in os.walk(out) for f in files if f.endswith(".png")}
+        check(pngs["pth"] and pngs["pth"] == pngs["dir"],
+              f"pretrained: infer_ytvos PNGs from the .pth and the converted directory differ "
+              f"({len(pngs['pth'])} and {len(pngs['dir'])} files)")
+        log(f"pretrained: cli.tools convert_checkpoint {tool_s:.1f} s (model build, load and "
+            f"save); infer_ytvos from the .pth and from the directory wrote the same "
+            f"{len(pngs['pth'])} PNGs, launches {results['paths']['pretrained_infer_pth']}")
+
+        # (c) two steps of the train CLI from --pretrained_weights
+        davis = os.path.join(root, "davis")
+        write_davis_tree(davis, frames=2)
+        argv = ["--dataset_file", "davis", "--davis_path", davis, "--backbone", "resnet101",
+                "--supervision", "box", "--num_frames", "3", "--batch_size", "1", "--epochs",
+                "1", "--output_dir", os.path.join(root, "train"), "--log_every", "1",
+                "--tb_every", "0", "--pretrained_weights", pth, "--tokenizer_path", vocab]
+        first = {}
+        step_call = engine_train.TrainStep.__call__
+
+        def keep_first(self, batch):
+            if not first:
+                first.update({k: v.detach().cpu().clone()
+                              for k, v in self.model.state_dict().items()})
+            return step_call(self, batch)
+
+        engine_train.TrainStep.__call__ = keep_first
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            train_cli.main(argv)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            engine_train.TrainStep.__call__ = step_call
+        counts = read_counts()
+        args = train_cli.get_args(argv)
+        steps = len(train_cli.make_dataset(args, train_cli.make_config(args)))
+        check(steps == 2 and counts == counts_of(K1=16, K2=16),
+              f"pretrained train_cli: {steps} steps launched {counts} (want 2 steps, K1 and "
+              f"K2 8 per step)")
+        results["paths"]["pretrained_train"] = counts
+        heads = [k for k in first if k.startswith("class_embed_")]
+        check(heads and all(not torch.equal(first[k], torch.from_numpy(want[k]))
+                            for k in heads),
+              "pretrained train_cli: a class head holds the checkpoint's value")
+        differ = [k for k in first if k not in heads
+                  and not torch.equal(first[k], torch.from_numpy(want[k]))]
+        check(not differ, f"pretrained train_cli: tensors unlike the checkpoint's before the "
+                          f"first step: {differ[:5]}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"pretrained: train_cli --pretrained_weights, {steps} steps in {train_s:.1f} s "
+            f"(model build, load, loader and checkpoint included), launches {counts}; before "
+            f"the first step {len(heads)} class-head tensors at their init, the other "
+            f"{len(first) - len(heads)} the checkpoint's [{smi}]")
+
+        # (d) the toy vocabulary on this machine's transformers
+        tokenizer = SimpleTokenizer(vocab, max_len=TOY_MAX_LEN)
+        ids, mask = tokenizer(list(TOY_CAPTIONS))
+        check(ids.dtype == mask.dtype == np.int32
+              and ids.tolist() == [list(r) for r in TOY_IDS]
+              and mask.tolist() == [list(r) for r in TOY_MASK],
+              f"pretrained: transformers {transformers.__version__} tokenizes the toy "
+              f"vocabulary as {ids.tolist()} {mask.tolist()}")
+        log(f"pretrained: transformers {transformers.__version__} "
+            f"{type(tokenizer._hf).__name__} on the toy vocabulary gives the constant ids "
+            f"and masks; peak memory {peak:.2f} GiB")
+        if type(tokenizer._hf) is not transformers.RobertaTokenizerFast:
+            # why models/text_encoder.py does not call RobertaTokenizerFast here
+            fast = transformers.RobertaTokenizerFast.from_pretrained(vocab)
+            fast_ids = fast(list(TOY_CAPTIONS), padding="max_length", truncation=True,
+                            max_length=TOY_MAX_LEN)["input_ids"]
+            log(f"pretrained: RobertaTokenizerFast.from_pretrained on the same directory gives "
+                f"{'the same' if fast_ids == ids.tolist() else 'other'} ids: {fast_ids}")
+        results["pretrained"] = {"load_s": load_s, "convert_s": convert_s,
+                                 "forward_ms": fwd_ms, "tool_s": tool_s, "peak_gib": peak}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ----------------------------------------------------------- pseudo_labels --
+PSEUDO_H, PSEUDO_W = 320, 576
+
+
+def pseudo_label_frame(rng):
+    """A seeded 320 x 576 RGB frame (A2D's clips320H height) with two
+    objects, and their 3 instance masks, the last one empty."""
+    yy, xx = np.mgrid[0:PSEUDO_H, 0:PSEUDO_W]
+    img = 60 + 120 * np.kron(rng.random((PSEUDO_H // 16, PSEUDO_W // 16, 3)),
+                             np.ones((16, 16, 1)))
+    masks = np.zeros((3, PSEUDO_H, PSEUDO_W), np.float32)
+    masks[0] = ((yy - 150) / 90.0) ** 2 + ((xx - 180) / 120.0) ** 2 <= 1
+    masks[1, 40:140, 360:540] = 1
+    img[masks[0] > 0] = 0.4 * img[masks[0] > 0] + [140, 30, 30]
+    img[masks[1] > 0] = 0.4 * img[masks[1] > 0] + [30, 30, 140]
+    img += 20 * rng.random(img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8), masks
+
+
+def phase_pseudo_labels(results):
+    """The generator's --densecl path at full width: the replica's
+    ResNet-101 body (torchvision names) through ``convert_resnet`` into the
+    sim model on the card and on the CPU; ``generate_for_frame`` on a
+    seeded 320 x 576 frame with 3 instances (one empty), without and with
+    the CRF: centres equal, heat maps within 1e-3, each bbox choice the
+    CPU's or a tie within 1e-5 (TF32 off on the card)."""
+    from ocpg_tpu_torch.preprocess import generate_anno, sim_model
+    from ocpg_tpu_torch.utils.torch_weights import load_torch_file
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="pseudo_", dir=_build.BUILD_DIR)
+    try:
+        replica_module = torch_replica()
+        torch.manual_seed(1)
+        body = replica_module.ResNetBody((3, 4, 23, 3))
+        g = torch.Generator().manual_seed(2)
+        for mod in body.modules():
+            if isinstance(mod, replica_module.FrozenBN2d):
+                n = mod.weight.numel()
+                mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
+        pth = os.path.join(root, "densecl_r101.pth")
+        torch.save({"state_dict": body.state_dict()}, pth)
+        models = {}
+        for dev in ("cuda", "cpu"):
+            models[dev] = sim_model.init_sim_model(device=dev)
+            sim_model.load_resnet_weights(models[dev], load_torch_file(pth))
+        img, masks = pseudo_label_frame(np.random.default_rng(9))
+        generate_anno.generate_for_frame(models["cuda"], img, masks)     # cuDNN warm-up
+        reset_counts()
+        outs, secs = {}, {}
+        for crf in (False, True):
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                outs[dev, crf] = generate_anno.generate_for_frame(models[dev], img, masks, crf)
+                torch.cuda.synchronize()
+                secs[dev, crf] = time.perf_counter() - t0
+        counts = read_counts()
+        check(counts == counts_of(), f"pseudo_labels launched {counts}")
+        results["paths"]["pseudo_labels"] = counts
+
+        x = (img.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+        image = {dev: torch.from_numpy(x.transpose(2, 0, 1)[None].copy()).to(dev)
+                 for dev in models}
+        keys = {dev: sim_model.image_keys(models[dev], image[dev]) for dev in models}
+        choices = []
+        for n, m in enumerate(masks):
+            if not m.any():
+                continue
+            ys, xs = np.where(m > 0)
+            box = (float(xs.min()), float(ys.min()), float(xs.max()), float(ys.max()))
+            (_, sg), (_, sc) = (sim_model.bbox_scores(keys[d], box, img.shape[:2])
+                                for d in ("cuda", "cpu"))
+            sg = sg.cpu()
+            ig, ic = int(sg.argmax()), int(sc.argmax())
+            check(abs(float(sg[ic]) - float(sc[ic])) <= 1e-5
+                  and abs(float(sg[ig]) - float(sc[ic])) <= 1e-5,
+                  f"pseudo_labels instance {n}: bbox scores card {float(sg[ig])} (query {ig}) "
+                  f"cpu {float(sc[ic])} (query {ic})")
+            choices.append((n, ig, ic))
+        for crf in (False, True):
+            (hb_g, hp_g, cp_g), (hb_c, hp_c, cp_c) = outs["cuda", crf], outs["cpu", crf]
+            check(np.array_equal(cp_g, cp_c), f"pseudo_labels centres {cp_g} != {cp_c}")
+            check(float(np.abs(hp_g - hp_c).max()) <= 1e-3,
+                  f"pseudo_labels crf={crf} heatPoint: card vs cpu "
+                  f"{float(np.abs(hp_g - hp_c).max())} > 1e-3")
+            for n, ig, ic in choices:
+                if ig == ic:
+                    err = float(np.abs(hb_g[n] - hb_c[n]).max())
+                    check(err <= 1e-3, f"pseudo_labels crf={crf} heatBBox {n}: card vs cpu "
+                                       f"{err} > 1e-3")
+            log(f"pseudo_labels crf={crf}: heatPoint max |card - cpu| "
+                f"{float(np.abs(hp_g - hp_c).max()):.2e}, heatBBox "
+                f"{max(float(np.abs(hb_g[n] - hb_c[n]).max()) for n, _, _ in choices):.2e} "
+                f"(limit 1e-3), centres {cp_g.tolist()} equal; frame {secs['cuda', crf]:.2f} s "
+                f"with the model on the card, {secs['cpu', crf]:.2f} s on the host [{smi}]")
+        check(all(not out[k][2].any() for out in outs.values() for k in (0, 1)),
+              "pseudo_labels: the empty instance's maps are not zero")
+        keys_ms, _ = cuda_times(lambda: sim_model.image_keys(models["cuda"], image["cuda"]),
+                                iters=10)
+        log(f"pseudo_labels: bbox query choices (instance, card, cpu) {choices}; sim model "
+            f"layer4 keys 1x3x{PSEUDO_H}x{PSEUDO_W} {keys_ms:.2f} device ms (float32, TF32 "
+            f"off) [{smi}]")
+        results["pseudo_labels"] = {"frame_s": secs["cuda", False],
+                                    "frame_crf_s": secs["cuda", True], "keys_ms": keys_ms}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ------------------------------------------------------------------ std_op --
 def phase_std_op(results):
     """The standard-layout op once, forward and backward, at the train
@@ -2040,6 +2474,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
     results = {"paths": {}}
+    log(f"peak rates ({'assumed, ' if SPEC.assumed else ''}{SPEC.kind}): "
+        f"{SPEC.hbm_bytes_per_s / 1e12:.2f} TB/s HBM, {SPEC.peak_flops_f32 / 1e12:.0f} "
+        f"TFLOP/s float32, {SPEC.peak_flops_bf16 / 1e12:.0f} TFLOP/s bf16")
 
     t0 = time.perf_counter()
     secs = _build.build_all()
@@ -2053,7 +2490,8 @@ def main() -> int:
                      ("swin_train", phase_swin_train), ("resume", phase_resume),
                      ("train_cli", phase_train_cli), ("eval_cli", phase_eval_cli),
                      ("pretrain_cli", phase_pretrain_cli), ("infer_davis", phase_infer_davis),
-                     ("infer_ytvos", phase_infer_ytvos), ("std_op", phase_std_op),
+                     ("infer_ytvos", phase_infer_ytvos), ("pretrained", phase_pretrained),
+                     ("pseudo_labels", phase_pseudo_labels), ("std_op", phase_std_op),
                      ("msda_bench", phase_msda_bench)):
         t0 = time.perf_counter()
         fn(results)

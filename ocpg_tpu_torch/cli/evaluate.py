@@ -10,7 +10,8 @@ Usage:
         --checkpoint output/a2d_r101/checkpoints --backbone resnet101
 
 ``--checkpoint`` takes a port checkpoint directory (``cli/train.py``'s
-``checkpoints/``); without it the weights are the model's seeded init.
+``checkpoints/``) or a reference ``.pth`` file; without it the weights are
+the model's seeded init.
 ``--device cpu`` runs on the CPU (the tests do); without a GPU the default
 device raises.
 """
@@ -19,10 +20,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 from typing import Dict, Optional, Sequence
-
-from .train import UNPORTED
 
 
 def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -35,11 +33,11 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--a2d_path", default=None)
     p.add_argument("--jhmdb_path", default=None)
     p.add_argument("--checkpoint", default=None,
-                   help="a port checkpoints/ directory (a reference .pth file is "
-                        f"{UNPORTED})")
+                   help="a port checkpoints/ directory or a reference .pth file")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--num_frames", type=int, default=3)
-    p.add_argument("--tokenizer_path", default=None, help=UNPORTED)
+    p.add_argument("--tokenizer_path", default=None,
+                   help="a RoBERTa tokenizer directory; default: the hash tokenizer")
     p.add_argument("--invert_masks", action="store_true",
                    help="the reference postprocessor's mask inversion quirk")
     p.add_argument("--readback", default="f32", choices=["f16", "f32"],
@@ -61,15 +59,11 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     args = get_args(argv)
-    if args.tokenizer_path:
-        raise NotImplementedError(f"--tokenizer_path is {UNPORTED}")
-    if args.checkpoint and os.path.isfile(args.checkpoint):
-        raise NotImplementedError(f"a reference .pth --checkpoint is {UNPORTED}")
 
     from ..config import OCPGConfig, apply_config_overrides
     from ..data.datasets import build_dataset
     from ..data.loader import ClipLoader
-    from ..engine.checkpoint import load_params
+    from ..engine.checkpoint import load_checkpoint
     from ..engine.evaluate import evaluate_a2d
     from ..models.build import build_model, resolve_device
     from ..models.text_encoder import SimpleTokenizer
@@ -81,12 +75,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     root = args.a2d_path if args.dataset_file == "a2d" else args.jhmdb_path
     dataset = build_dataset(args.dataset_file, root, "val", cfg.num_frames)
     loader = ClipLoader(dataset, args.batch_size,
-                        tokenizer=SimpleTokenizer(vocab_size=cfg.text_vocab), train=False,
+                        tokenizer=SimpleTokenizer(args.tokenizer_path,
+                                                  vocab_size=cfg.text_vocab),
+                        train=False,
                         canvas=tuple(args.canvas) if args.canvas else None,
                         compact=True)
     model = build_model(cfg, device)
     if args.checkpoint:
-        load_params(args.checkpoint, model)
+        load_checkpoint(model, args.checkpoint, cfg)
     metrics = evaluate_a2d(model, loader, invert_masks=args.invert_masks,
                            readback=args.readback, postprocess=args.postprocess,
                            device=device)

@@ -26,14 +26,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 
 from ..data.imageio import read_rgb
-from .train import UNPORTED
 
 
 def merge_annotator_masks(anno: np.ndarray) -> np.ndarray:
@@ -56,15 +54,15 @@ def merge_annotator_masks(anno: np.ndarray) -> np.ndarray:
 def add_engine_args(p: argparse.ArgumentParser) -> None:
     """The flags the DAVIS and YTVOS inference CLIs share."""
     p.add_argument("--checkpoint", default=None,
-                   help="a port checkpoints/ directory (a reference .pth file is "
-                        f"{UNPORTED})")
+                   help="a port checkpoints/ directory or a reference .pth file")
     p.add_argument("--backbone", default="resnet101")
     p.add_argument("--split", default="valid")
     p.add_argument("--per_device_batch", type=int, default=1,
                    help="requests per dispatch (the engine's slots)")
     p.add_argument("--resize", type=int, default=360)
     p.add_argument("--max_size", type=int, default=640)
-    p.add_argument("--tokenizer_path", default=None, help=UNPORTED)
+    p.add_argument("--tokenizer_path", default=None,
+                   help="a RoBERTa tokenizer directory; default: the hash tokenizer")
     p.add_argument("--buckets", default="exact",
                    help="'exact' (default): each request's /64-aligned canvas, the "
                         "least padding (past 4 distinct canvases new shapes take the "
@@ -92,13 +90,6 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--clip_len", type=int, default=36)
     add_engine_args(p)
     return p.parse_args(argv)
-
-
-def check_unported(args: argparse.Namespace) -> None:
-    if args.tokenizer_path:
-        raise NotImplementedError(f"--tokenizer_path is {UNPORTED}")
-    if args.checkpoint and os.path.isfile(args.checkpoint):
-        raise NotImplementedError(f"a reference .pth --checkpoint is {UNPORTED}")
 
 
 def make_config(args: argparse.Namespace, dataset_file: str):
@@ -164,14 +155,14 @@ def init_engine(cfg, args: argparse.Namespace, want_query_scores: bool = False):
     ``--device`` behind a ClipInferenceEngine; returns (model, engine)."""
     import torch
 
-    from ..engine.checkpoint import load_params
+    from ..engine.checkpoint import load_checkpoint
     from ..engine.infer import ClipInferenceEngine
     from ..models.build import build_model, resolve_device
 
     device = resolve_device(args.device)
     model = build_model(cfg, device)
     if args.checkpoint:
-        load_params(args.checkpoint, model)
+        load_checkpoint(model, args.checkpoint, cfg)
     out_dtype = torch.float16 if args.readback == "f16" else torch.float32
     return model, ClipInferenceEngine(
         model, clip_len=args.clip_len, buckets=parse_buckets(args.buckets),
@@ -194,14 +185,13 @@ def resized_scores(engine, logits: np.ndarray, origin_size) -> np.ndarray:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = get_args(argv)
-    check_unported(args)
     from PIL import Image
 
     from ..engine.infer import InferRequest
     from ..models.text_encoder import SimpleTokenizer
 
     cfg = make_config(args, "davis")
-    tokenizer = SimpleTokenizer(vocab_size=cfg.text_vocab)
+    tokenizer = SimpleTokenizer(args.tokenizer_path, vocab_size=cfg.text_vocab)
     root = Path(args.davis_path)
     with open(root / "meta_expressions" / args.split / "meta_expressions.json") as f:
         data = json.load(f)["videos"]

@@ -29,8 +29,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-from .infer_davis import (add_engine_args, check_unported, init_engine, load_frames,
-                          make_config, resized_scores)
+from .infer_davis import (add_engine_args, init_engine, load_frames, make_config,
+                          resized_scores)
 
 
 def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -84,7 +84,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, int]:
     """Returns the counts of the run: requests, and chunks run again by
     ``--query_select global``."""
     args = get_args(argv)
-    check_unported(args)
     from PIL import Image
 
     from ..data.imageio import read_rgb
@@ -92,7 +91,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, int]:
     from ..models.text_encoder import SimpleTokenizer
 
     cfg = make_config(args, "ytvos")
-    tokenizer = SimpleTokenizer(vocab_size=cfg.text_vocab)
+    tokenizer = SimpleTokenizer(args.tokenizer_path, vocab_size=cfg.text_vocab)
     root = Path(args.ytvos_path)
     with open(root / "meta_expressions" / args.split / "meta_expressions.json") as f:
         data = json.load(f)["videos"]

@@ -26,8 +26,6 @@ import time
 from pathlib import Path
 from typing import Optional, Sequence
 
-from .train import UNPORTED
-
 
 def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
@@ -48,7 +46,8 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--output_dir", default="output/pretrain")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--tokenizer_path", default=None, help=UNPORTED)
+    p.add_argument("--tokenizer_path", default=None,
+                   help="a RoBERTa tokenizer directory; default: the hash tokenizer")
     p.add_argument("--no_eval", action="store_true",
                    help="skip the per-epoch refcoco val evaluation")
     p.add_argument("--eval_batch_size", type=int, default=2)
@@ -63,8 +62,6 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = get_args(argv)
-    if args.tokenizer_path:
-        raise NotImplementedError(f"--tokenizer_path is {UNPORTED}")
 
     from ..config import OCPGConfig, apply_config_overrides
     from ..data.loader import ClipLoader
@@ -102,7 +99,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             if val_ann.exists():
                 val_sets.append((n, RefExpDataset(str(img_dir), str(val_ann), num_frames=1)))
 
-    tokenizer = SimpleTokenizer(vocab_size=cfg.text_vocab)
+    tokenizer = SimpleTokenizer(args.tokenizer_path, vocab_size=cfg.text_vocab)
     canvas = tuple(args.canvas) if args.canvas else None
     loader = ClipLoader(dataset, cfg.batch_size, tokenizer=tokenizer, train=True,
                         seed=cfg.seed, canvas=canvas, compact=True)

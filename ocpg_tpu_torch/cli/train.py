@@ -27,8 +27,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-UNPORTED = "not ported yet (ROADMAP Queue 1 item 11)"
-
 
 def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
@@ -61,10 +59,13 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="COCO root for the joint refcoco-seq datasets")
     p.add_argument("--refexp_ann_dir", default=None,
                    help="dir of COCO-format referring JSONs for joint training")
-    p.add_argument("--pretrained_weights", default=None, help=UNPORTED)
+    p.add_argument("--pretrained_weights", default=None,
+                   help="a reference OCPG .pth (or a converted tree) to finetune "
+                        "from; the class heads keep their init")
     p.add_argument("--resume", default=None, help="a checkpoints/ directory")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--tokenizer_path", default=None, help=UNPORTED)
+    p.add_argument("--tokenizer_path", default=None,
+                   help="a RoBERTa tokenizer directory; default: the hash tokenizer")
     p.add_argument("--num_workers", type=int, default=None,
                    help="loader decode threads; default = min(4, host cores)")
     p.add_argument("--log_every", type=int, default=50)
@@ -145,7 +146,8 @@ def make_loader(args: argparse.Namespace, cfg, dataset):
     from ..models.text_encoder import SimpleTokenizer
 
     return ClipLoader(dataset, cfg.batch_size,
-                      tokenizer=SimpleTokenizer(vocab_size=cfg.text_vocab),
+                      tokenizer=SimpleTokenizer(args.tokenizer_path,
+                                                vocab_size=cfg.text_vocab),
                       train=True, seed=cfg.seed,
                       canvas=tuple(args.canvas) if args.canvas else None,
                       num_workers=args.num_workers, compact=True)
@@ -153,13 +155,9 @@ def make_loader(args: argparse.Namespace, cfg, dataset):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = get_args(argv)
-    if args.pretrained_weights:
-        raise NotImplementedError(f"--pretrained_weights is {UNPORTED}")
-    if args.tokenizer_path:
-        raise NotImplementedError(f"--tokenizer_path is {UNPORTED}")
 
     from ..data.imageio import decoder
-    from ..engine.checkpoint import CheckpointManager
+    from ..engine.checkpoint import CheckpointManager, load_pretrained_torch
     from ..engine.optim import build_optimizer
     from ..engine.train import TrainStep
     from ..models.build import (build_model, build_weight_dict, criterion_config,
@@ -180,6 +178,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
           f"{loader.num_workers} loader threads, canvas {loader.canvas}", flush=True)
 
     model = build_model(cfg, device)
+    if args.pretrained_weights:
+        load_pretrained_torch(model, args.pretrained_weights, cfg)
     # one device: the JAX CLI's linear LR scale max(devices / 4, 1) is 1
     steps_per_epoch = max(len(dataset) // cfg.batch_size, 1)
     optimizer = build_optimizer(model, cfg, [e * steps_per_epoch for e in cfg.lr_drop])

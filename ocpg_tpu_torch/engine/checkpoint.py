@@ -20,7 +20,8 @@ newest ``max_to_keep`` checkpoints stay.
 
 ``restore_params_into`` is the finetune merge (``strict=False`` without
 the class heads); ``load_params`` takes the model's weights of the newest
-checkpoint for inference.
+checkpoint for inference; ``load_pretrained_torch`` loads a reference
+PyTorch checkpoint (``--pretrained_weights``, a ``--checkpoint`` file).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from __future__ import annotations
 import os
 import re
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -145,4 +146,49 @@ def load_params(checkpoint_dir: str, model: nn.Module) -> nn.Module:
     saved = _load(directory, steps[-1])
     model.load_state_dict(restore_params_into(model.state_dict(), saved["model"],
                                               drop_prefixes=()))
+    return model
+
+
+def load_pretrained_torch(model: nn.Module, path: str, cfg,
+                          drop_class_heads: bool = True) -> List[str]:
+    """Load a reference PyTorch checkpoint into ``model`` (the
+    ``--pretrained_weights`` loader, and a ``--checkpoint`` file).
+
+    ``path`` holds a raw reference OCPG state dict (flat dotted keys,
+    converted by ``utils/torch_weights.convert_ocpg`` for ``cfg``'s
+    backbone and layer counts) or an already converted tree: a bare params
+    tree or ``{"params": ..., "frozen": ...}``.  The tree's tensors, the
+    FrozenBN statistics included, are merged as ``restore_params_into``
+    merges (a tensor the checkpoint lacks or holds at another shape keeps
+    the model's value); with ``drop_class_heads`` (finetuning) the class
+    heads keep theirs too.  Returns the keys of the model's state dict that
+    were taken from the checkpoint.
+    """
+    from ..utils.torch_weights import convert_ocpg, load_torch_file
+    from ..utils.weights import jax_to_state_dict
+
+    src = load_torch_file(path)
+    if any(isinstance(k, str) and "." in k for k in src):
+        params, frozen = convert_ocpg(
+            src, enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
+            num_feature_levels=cfg.num_feature_levels, backbone=cfg.backbone,
+            text_layers=cfg.text_layers, with_box_refine=cfg.with_box_refine)
+        tree = {"params": params, "frozen": frozen}
+    else:
+        tree = {"params": src.get("params", src), "frozen": src.get("frozen", {})}
+    source = {k: torch.as_tensor(v) for k, v in jax_to_state_dict(tree).items()}
+    drop = ("class_embed",) if drop_class_heads else ()
+    target = model.state_dict()
+    merged = restore_params_into(target, source, drop_prefixes=drop)
+    model.load_state_dict(merged)
+    return sorted(k for k in target if merged[k] is not target[k])
+
+
+def load_checkpoint(model: nn.Module, path: str, cfg) -> nn.Module:
+    """A ``--checkpoint``: a reference ``.pth`` file (class heads kept, for
+    inference) or a port ``checkpoints/`` directory; returns the model."""
+    if os.path.isfile(path):
+        load_pretrained_torch(model, path, cfg, drop_class_heads=False)
+    else:
+        load_params(path, model)
     return model

@@ -4,8 +4,9 @@
 The encoder is written out here (a post-LN transformer with learned
 positions offset by RoBERTa's padding index 1, and a tanh pooler), with the
 JAX tree's names (``word_embeddings``, ``layer_{i}/q`` ...).  The tokenizer
-is the md5 hash path of the JAX ``SimpleTokenizer``, with identical ids; a
-checkpoint tokenizer (HF vocabulary files) is not ported yet.
+is the JAX ``SimpleTokenizer``: a RoBERTa tokenizer from HF vocabulary
+files (``checkpoint_path``), or else the md5 hash path, with identical ids
+either way.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -98,19 +100,59 @@ class RobertaEncoder(nn.Module):
 
 
 class SimpleTokenizer:
-    """Hermetic hash tokenizer: ``<s> words </s>`` with md5 word ids, padded
-    to ``max_len`` with id 1; ids identical to the JAX package's."""
+    """Host-side tokenizer giving fixed-length ``(input_ids, attention_mask)``
+    int32 arrays, padded to ``max_len``.
+
+    With ``checkpoint_path`` it is HF's fast RoBERTa tokenizer loaded from
+    that directory (``vocab.json``, ``merges.txt`` and ``tokenizer.json``,
+    as a RoBERTa checkpoint holds them); a path that fails to load raises
+    ``ValueError`` naming it, and an id ``>= vocab_size`` raises.  Without
+    one it is the hermetic hash tokenizer: ``<s> words </s>`` with md5 word
+    ids, padded with id 1.  Either way the ids are the JAX package's.
+    """
 
     def __init__(self, checkpoint_path: Optional[str] = None, max_len: int = 32,
                  vocab_size: int = 50265):
-        if checkpoint_path:
-            raise NotImplementedError(
-                "a checkpoint tokenizer is not ported yet; omit checkpoint_path "
-                "to use the hash tokenizer")
         self.max_len = max_len
         self.vocab_size = vocab_size
+        self._hf = None
+        if checkpoint_path:
+            # a tokenizer path that fails to load must not fall back to the
+            # hash ids: a real checkpoint would run on garbage tokens
+            import transformers
+
+            # a local directory only: a name such as "roberta-base" must
+            # not turn into a request to the model hub
+            if not os.path.isdir(checkpoint_path):
+                raise ValueError(f"failed to load tokenizer from {checkpoint_path!r}: not a "
+                                 "directory; omit tokenizer_path to use the hash tokenizer")
+            # transformers 5 moved the fast tokenizer into RobertaTokenizer;
+            # its RobertaTokenizerFast.from_pretrained drops the BPE merges
+            # of a tokenizer.json and cannot read vocab.json + merges.txt
+            if int(transformers.__version__.split(".")[0]) < 5:
+                tokenizer_class = transformers.RobertaTokenizerFast
+            else:
+                tokenizer_class = transformers.RobertaTokenizer
+            try:
+                self._hf = tokenizer_class.from_pretrained(checkpoint_path,
+                                                           local_files_only=True)
+            except Exception as e:
+                raise ValueError(
+                    f"failed to load tokenizer from {checkpoint_path!r}: {e}; "
+                    "omit tokenizer_path to use the hash tokenizer") from e
 
     def __call__(self, captions: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+        if self._hf is not None:
+            # the tokenizer's __call__ (transformers 5 has no batch_encode_plus)
+            enc = self._hf(list(captions), padding="max_length", truncation=True,
+                           max_length=self.max_len, return_tensors="np")
+            ids = np.asarray(enc["input_ids"]).astype(np.int32)
+            if ids.max(initial=0) >= self.vocab_size:
+                # an out-of-range id would index past the embedding table
+                raise ValueError(
+                    f"tokenizer produced id {int(ids.max())} >= vocab_size "
+                    f"{self.vocab_size}; pass vocab_size=cfg.text_vocab")
+            return ids, np.asarray(enc["attention_mask"]).astype(np.int32)
         ids = np.full((len(captions), self.max_len), 1, dtype=np.int32)
         mask = np.zeros((len(captions), self.max_len), dtype=np.int32)
         for i, cap in enumerate(captions):

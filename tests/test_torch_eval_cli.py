@@ -19,8 +19,10 @@ are captured from the run and carried into the port (a port checkpoint for
   ``refcoco_{bbox,segm,coco_bbox}_*`` keys finite, the checkpoint written;
   the eval model holds the trained weights when it runs, and a fresh eval
   model loaded from the checkpoint reproduces the logged metrics.
-* The refusals: a reference ``.pth`` checkpoint and ``--tokenizer_path``
-  name ROADMAP Queue 1 item 11; without a GPU the default device raises.
+* A reference ``.pth`` checkpoint and ``--tokenizer_path``: evaluate's
+  metrics equal the JAX CLI's with the same flags, pretrain's first batch
+  the JAX loader's with the same tokenizer; without a GPU the default
+  device raises.
 
 The JAX runs are cached at module scope.
 """
@@ -59,7 +61,6 @@ H, W = 64, 80
 CANVAS = ["--canvas", str(H), str(W)]
 METRIC_ATOL = 1e-6
 LOSS_RTOL = 1e-5
-UNPORTED = "Queue 1 item 11"
 
 
 @contextlib.contextmanager
@@ -352,19 +353,68 @@ def test_pretrain_cli_against_jax(trees, tmp_path, jax_pretrain_step, monkeypatc
     assert {f"refcoco_{k}": v for k, v in again.items()} == {k: rec[k] for k in val_keys}
 
 
+class _FirstStep(Exception):
+    """Raised by a patched TrainStep to end a CLI run at its first step."""
+
+
 @pytest.mark.parametrize("cli,argv", [
     ("evaluate", ["--dataset_file", "jhmdb", "--jhmdb_path", "x", "--device", "cpu"]),
     ("pretrain", ["--coco_path", "x", "--device", "cpu"]),
 ])
-def test_unported_flags_and_the_gpu_default(cli, argv, tmp_path):
-    main = {"evaluate": evaluate_cli.main, "pretrain": pretrain_cli.main}[cli]
-    with pytest.raises(NotImplementedError, match=UNPORTED):
-        main(argv + ["--tokenizer_path", "tok"])
+def test_unported_flags_and_the_gpu_default(cli, argv, trees, tmp_path, monkeypatch):
+    """The flags that were refused before: evaluate with a reference .pth
+    ``--checkpoint`` and ``--tokenizer_path`` (the toy vocabulary of
+    chip_smoke.py) gives the JAX CLI's metrics with the same flags;
+    pretrain's first batch with ``--tokenizer_path`` is the JAX loader's
+    with JAX's tokenizer on that vocabulary.  Without a GPU the default
+    device raises."""
+    import chip_smoke
+    from tests.test_torch_pretrained import save_replica_pth
+
+    vocab = tmp_path / "vocab"
+    vocab.mkdir()
+    chip_smoke.write_toy_vocab(str(vocab))
     if cli == "evaluate":
-        pth = tmp_path / "ref.pth"
-        pth.write_bytes(b"")
-        with pytest.raises(NotImplementedError, match=UNPORTED):
-            main(argv + ["--checkpoint", str(pth)])
+        save_replica_pth(tmp_path / "ref.pth")
+        flags = _eval_argv(trees, "jhmdb") + ["--batch_size", "1", "--checkpoint",
+                                               str(tmp_path / "ref.pth"),
+                                               "--tokenizer_path", str(vocab)]
+        with jax_cli(flags) as (_, out):
+            jax_evaluate_cli.main()
+        want = json.loads(out.getvalue())
+        got = evaluate_cli.main(flags + ["--device", "cpu"])
+        assert got.keys() == want.keys()
+        for k in want:
+            assert abs(got[k] - want[k]) <= METRIC_ATOL, (k, got[k], want[k])
+    else:
+        from ocpg_tpu.config import OCPGConfig as JaxConfig
+        from ocpg_tpu.data.loader import ClipLoader as JaxClipLoader
+        from ocpg_tpu.data.refexp import RefExpDataset as JaxRefExp
+        from ocpg_tpu.models.text_encoder import SimpleTokenizer as JaxTokenizer
+
+        from ocpg_tpu_torch.engine.train import TrainStep
+        from tests.test_torch_data import assert_batches_equal
+
+        batches = []
+
+        def first_step(self, batch):
+            batches.append(jax.tree_util.tree_map(lambda t: t.numpy(), batch))
+            raise _FirstStep
+
+        monkeypatch.setattr(TrainStep, "__call__", first_step)
+        with pytest.raises(_FirstStep):
+            pretrain_cli.main(_pretrain_argv(trees, tmp_path / "run")
+                              + ["--tokenizer_path", str(vocab)])
+        root = trees["refcoco"]
+        dataset = JaxRefExp(root / "train2014", root / "instances_refcoco_train.json",
+                            num_frames=1, as_sequence=False)
+        seed = JaxConfig(dataset_file="refcoco", **TINY_CFG).seed
+        loader = JaxClipLoader(dataset, 2, tokenizer=JaxTokenizer(
+            str(vocab), vocab_size=TINY_CFG["text_vocab"]), train=True, seed=seed,
+            canvas=(H, W), compact=True)
+        assert_batches_equal(batches[0], next(iter(loader.epoch(0))))
+        assert batches[0]["text_ids"].max() < chip_smoke.TOY_VOCAB_SIZE
+    main = {"evaluate": evaluate_cli.main, "pretrain": pretrain_cli.main}[cli]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([a for a in argv if a not in ("--device", "cpu")])

@@ -18,7 +18,9 @@ carried into a port checkpoint for ``--checkpoint``.
 * The helpers: ``merge_annotator_masks``, ``parse_buckets`` and
   ``load_frames`` equal to the JAX CLI's; the global query selection
   re-runs exactly the chunks whose own best query differs.
-* Without ``--visualize`` the CLIs load no cv2; the refusals.
+* Without ``--visualize`` the CLIs load no cv2.  A reference ``.pth``
+  ``--checkpoint`` and ``--tokenizer_path`` give the JAX CLIs' masks with
+  the same flags; without a GPU the default device raises.
 
 The JAX runs are cached at module scope.
 """
@@ -266,16 +268,59 @@ def test_inference_without_visualize_loads_no_cv2(trees, tmp_path):
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stdout + res.stderr
 
 
+SCORE_ATOL = 1e-4
+
+
 @pytest.mark.parametrize("module", [infer_davis, infer_ytvos])
-def test_unported_flags_and_the_gpu_default(module, trees, tmp_path):
-    argv = (_davis_argv(trees, tmp_path) if module is infer_davis
-            else _ytvos_argv(trees, tmp_path, 3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        module.main(argv + ["--tokenizer_path", "tok", "--device", "cpu"])
-    pth = tmp_path / "ref.pth"
-    pth.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        module.main(argv + ["--checkpoint", str(pth), "--device", "cpu"])
+def test_unported_flags_and_the_gpu_default(module, trees, tmp_path, monkeypatch):
+    """The flags that were refused before: a reference .pth ``--checkpoint``
+    and ``--tokenizer_path`` (the toy vocabulary of chip_smoke.py) against
+    the JAX CLI with the same flags.  infer_ytvos: the PNGs agree on at
+    least 99% of pixels.  infer_davis: the per-object sigmoid scores each
+    CLI merges agree within 1e-4, and the merged labels wherever no other
+    candidate (background 0.1, the 0.3 floor, another object) is within
+    1e-4 of the winner: the replica's seeded weights give the objects'
+    scores within 1e-7 of each other almost everywhere, so their argmax is
+    a tie that float32 rounding decides.  Without a GPU the default device
+    raises."""
+    import chip_smoke
+    from tests.test_torch_pretrained import save_replica_pth
+
+    jax_module = jax_infer_davis if module is infer_davis else jax_infer_ytvos
+    vocab = tmp_path / "vocab"
+    vocab.mkdir()
+    chip_smoke.write_toy_vocab(str(vocab))
+    save_replica_pth(tmp_path / "ref.pth")
+    flags = ["--checkpoint", str(tmp_path / "ref.pth"), "--tokenizer_path", str(vocab)]
+    outs, merged = {}, {"port": [], "jax": []}
+    for name, mod in (("port", infer_davis), ("jax", jax_infer_davis)):
+        merge = mod.merge_annotator_masks
+        monkeypatch.setattr(mod, "merge_annotator_masks",
+                            lambda anno, name=name, merge=merge:
+                            merged[name].append(anno.copy()) or merge(anno))
+    for name in ("port", "jax"):
+        outs[name] = tmp_path / name
+        argv = (_davis_argv(trees, outs[name]) if module is infer_davis
+                else _ytvos_argv(trees, outs[name], 3)) + flags
+        if name == "port":
+            module.main(argv + ["--device", "cpu"])
+        else:
+            with jax_cli(argv):
+                jax_module.main()
+    if module is infer_ytvos:
+        assert _agreement(_ytvos_pngs(outs["port"]), _ytvos_pngs(outs["jax"])) >= AGREE
+    else:
+        assert len(merged["port"]) == len(merged["jax"]) == 4 * len(VIDEOS)
+        for got, want in zip(merged["port"], merged["jax"]):
+            np.testing.assert_allclose(got, want, atol=SCORE_ATOL)
+            floored = np.where(got < 0.3, 0.0, got)
+            cand = np.sort(np.concatenate([np.full((1,) + got.shape[1:], 0.1), floored]), 0)
+            decided = ((cand[-1] - cand[-2] > SCORE_ATOL)
+                       & (np.abs(got - 0.3).min(0) > SCORE_ATOL))
+            labels = [infer_davis.merge_annotator_masks(a) for a in (got, want)]
+            np.testing.assert_array_equal(labels[0][decided], labels[1][decided])
+        for png in _davis_pngs(outs["port"]):
+            assert np.asarray(Image.open(png)).shape == (H, W)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             module.main(argv)

@@ -11,6 +11,9 @@ one expression, TINY_CFG), against the JAX package.
   ``TrainStep`` on that batch matches JAX's loss and gradient norm within
   the tolerances of tests/test_torch_train_model.py (each loss 1e-5
   relative, grad_norm 3e-5).
+* ``--pretrained_weights`` and ``--tokenizer_path``: the weights at the
+  first step are JAX's conversion of a replica checkpoint (class heads at
+  their init), the first batch the JAX loader's with the same tokenizer.
 """
 import json
 
@@ -143,17 +146,61 @@ def test_config_overrides_refuse_the_jax_only_fields():
             apply_config_overrides(cfg, json.dumps({key: 1}))
 
 
-def test_cli_help_and_unported_flags(tree, tmp_path, capsys):
+class _FirstStep(Exception):
+    """Raised by a patched TrainStep to end a CLI run at its first step."""
+
+
+def test_cli_help_and_unported_flags(tree, tmp_path, capsys, monkeypatch):
+    """The help, the JAX-only flags refused, and the flags that were
+    refused before: with ``--pretrained_weights`` (a replica .pth) and
+    ``--tokenizer_path`` (the toy vocabulary of chip_smoke.py), the model at
+    the first step holds JAX's conversion of the checkpoint except the
+    class heads, which keep the model's init, and the first batch is the
+    JAX loader's with JAX's tokenizer on that vocabulary."""
+    import chip_smoke
+    from tests.test_torch_pretrained import converted_state_dict, save_replica_pth
+
     with pytest.raises(SystemExit):
         train_cli.get_args(["--help"])
     text = capsys.readouterr().out
     assert "--device" in text and "msda_impl" in text and "prng_impl" in text
-    for flag in ("--pretrained_weights", "--tokenizer_path"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            train_cli.main(_argv(tree, tmp_path, 1) + [flag, "x"])
     for flag, value in (("--prng_impl", "rbg"), ("--msda_impl", "xla")):
         with pytest.raises(SystemExit):
             train_cli.get_args([flag, value])
+
+    vocab = tmp_path / "vocab"
+    vocab.mkdir()
+    chip_smoke.write_toy_vocab(str(vocab))
+    sd = save_replica_pth(tmp_path / "ref.pth")
+    first = []
+
+    def first_step(self, batch):
+        first.append(({k: v.clone() for k, v in self.model.state_dict().items()}, batch))
+        raise _FirstStep
+
+    monkeypatch.setattr(TrainStep, "__call__", first_step)
+    argv = _argv(tree, tmp_path / "run", 1) + ["--pretrained_weights", str(tmp_path / "ref.pth"),
+                                               "--tokenizer_path", str(vocab)]
+    with pytest.raises(_FirstStep):
+        train_cli.main(argv)
+    state, batch = first[0]
+    cfg = train_cli.make_config(train_cli.get_args(argv))
+    init = build_model(cfg, device="cpu").state_dict()
+    want = converted_state_dict(sd, "resnet50")
+    assert state.keys() == init.keys() == want.keys()
+    for k, v in state.items():
+        expected = init[k] if k.startswith("class_embed_") else torch.from_numpy(want[k])
+        assert torch.equal(v, expected), k
+    assert not torch.equal(init["class_embed_0.weight"],
+                           torch.from_numpy(want["class_embed_0.weight"]))
+
+    jds = jax_build_dataset("ytvos", str(tree), "train", cfg.num_frames, cfg.supervision)
+    jax_loader = JaxClipLoader(jds, cfg.batch_size, tokenizer=JaxTokenizer(
+        str(vocab), vocab_size=cfg.text_vocab), train=True, seed=cfg.seed, canvas=(64, 80),
+        num_workers=2, compact=True)
+    assert_batches_equal(jax.tree_util.tree_map(lambda t: t.numpy(), batch),
+                         next(iter(jax_loader.epoch(0))))
+    assert batch["text_ids"].max() < chip_smoke.TOY_VOCAB_SIZE
 
 
 def test_cli_needs_a_gpu_unless_asked_for_the_cpu(tree, tmp_path):
