@@ -159,11 +159,15 @@ exit, no result line) if it goes wrong:
                  of the run outside the engine.
 16. infer_ytvos -- the Ref-YTVOS inference CLI (``cli.infer_ytvos``, R101 at
                  full width) on a seeded valid split (12- and 4-frame videos
-                 at 720 x 1280), chunked (clip_len 3, global query selection)
-                 and whole-video (clip_len 0): K1 8 per dispatch, one query per
-                 expression after the re-run, every PNG of both runs, the two
-                 runs agreeing on at least 99% of pixels (share and re-run
-                 chunks recorded).
+                 at 720 x 1280, and a 6-frame video of two unlike scenes that
+                 a probe run picked because their best queries differ),
+                 chunked (clip_len 3, global query selection) and whole-video
+                 (clip_len 0): K1 8 per dispatch, one query per expression
+                 after the re-run, at least one chunk run again, each re-run
+                 chunk's masks those of a direct dispatch of its request with
+                 the query forced, every PNG of both runs, the two runs
+                 agreeing on at least 99% of pixels (share and re-run chunks
+                 recorded).
 17. pretrained -- a reference-layout checkpoint at full width
                  (tests/torch_replica.py's OCPGReplica with ResNet-101 and a
                  RoBERTa-base config made here, seeded, saved as a .pth):
@@ -189,10 +193,29 @@ exit, no result line) if it goes wrong:
                  equal, heat maps within 1e-3, each bbox query choice the
                  CPU's or a tie within 1e-5; seconds per frame and the sim
                  model's device ms.
-19. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
+19. demo_e2e  -- the whole product (``ocpg_tpu_torch.scripts.
+                 demo_synthetic_e2e``) at a shortened length: random-weight
+                 ``cli.infer_davis`` and J&F, ``cli.train`` (the small R50
+                 model, 2+2 layers, bf16, 128 x 160, 96 steps), trained
+                 inference and J&F: K2 4 per step, K1 4 per step and per
+                 dispatch, the loss falls, every J&F finite in [0, 1].
+20. long_run  -- ``ocpg_tpu_torch.scripts.train_long_run --dataset davis`` at
+                 60 steps of the full-width ytvos_r101_boxsup model fed by
+                 ClipLoader(compact=True) from 6 videos x 16 frames at 720 x
+                 1280: the checkpoint at 30 read back bit-identical, restored
+                 into fresh objects bit-identical and replayed twice over 10
+                 steps, the first replayed loss equal to the live one and the
+                 first two within 1e-3 relative (the whole replay's difference
+                 and the two replays' spread recorded), val J and F at steps 1
+                 and 60; K1 and K2 8 per step, K1 8 per val forward.
+21. memory_envelope -- ``ocpg_tpu_torch.scripts.memory_envelope --quick``:
+                 peak allocated and reserved memory of the R101 train rows
+                 B=1 and 2 (T=3, 512 x 640, two steps each) and eval rows T=5
+                 and 36 (384 x 640), every row within the card's memory.
+22. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
                  forward and backward at the train encoder call: K3 and K4
                  launched once each, the gradients finite.
-20. msda_bench -- the port's MSDA kernel bench in this process
+23. msda_bench -- the port's MSDA kernel bench in this process
                  (``ocpg_tpu_torch.scripts.bench_msda_kernel``, variants cm
                  r4 fk sep, --bwd, eval shapes, checked against sep): every
                  check within 2e-2, K1, K2, K5 and K6 each launched.
@@ -204,7 +227,8 @@ the ranks count in their own processes and return their counts, which
 are summed), eval_cli (each of its two runs),
 pretrain_cli, infer_davis, infer_ytvos (each of its two runs), pretrained
 (its forward, each infer_ytvos run and the train run), pseudo_labels,
-std_op and msda_bench runs its path and read just after; the
+demo_e2e, long_run, memory_envelope, std_op and msda_bench runs its path
+and read just after; the
 ``kernels`` line gives each kernel's count on every path.
 
 It imports nothing of JAX.  The last three lines of its output are the
@@ -222,7 +246,6 @@ import json
 import math
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -248,7 +271,8 @@ from ocpg_tpu_torch.ops import ms_deform_attn_variants as msda_var
 from ocpg_tpu_torch.ops import window_attention as wattn
 from ocpg_tpu_torch.preprocess.sim_model import no_tf32
 from ocpg_tpu_torch.scripts import bench_msda_kernel
-from ocpg_tpu_torch.utils.hw import gpu_spec
+from ocpg_tpu_torch.scripts.train_long_run import palette_png
+from ocpg_tpu_torch.utils.hw import gpu_spec, nvidia_smi_line
 # the model's MSDA (M, D), the serving and train paths' levels and frames,
 # and the seeded MSDA inputs (uniform or clustered samples)
 from ocpg_tpu_torch.scripts.bench_msda_bwd import (HEAD_DIM, HEADS, SERVE_N, SERVE_SHAPES,
@@ -291,14 +315,6 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_times(fn, iters: int, warmup: int = 3):
@@ -1393,25 +1409,6 @@ def phase_resume(results):
 CLI_FRAMES, CLI_H, CLI_W = 8, 720, 1280
 
 
-def palette_png(indices: np.ndarray) -> bytes:
-    """A palette PNG of (H, W) uint8 indices (index i colored (i, i, i)),
-    written with the standard library."""
-    import struct
-    import zlib
-
-    h, w = indices.shape
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), indices], 1)   # filter 0
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
-            + chunk(b"PLTE", np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes())
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
-
-
 def write_davis_tree(root, split="train", frames=CLI_FRAMES, objects=1):
     """Seeded JPEG frames (PIL) and palette-PNG masks of ``objects`` (1 or 2)
     objects moving across ``frames`` frames, and the expression file: one
@@ -2372,28 +2369,69 @@ def phase_infer_davis(results):
 
 
 # ------------------------------------------------------------- infer_ytvos --
+# the valid split of phase infer_ytvos: a 12-frame video (longer than the
+# 3-frame clip) and a 4-frame one of a moving blob, and "vidX", two 3-frame
+# chunks of unlike scenes chosen by a probe so that the two chunks' own
+# best queries differ: global query selection must run one of them again
 YTVOS_CLIP, YTVOS_VIDEOS = 3, (("vidL", 12), ("vidS", 4))
+YTVOS_MIXED = "vidX"
+# the probe's scenes, one 3-frame chunk each
+YTVOS_SCENES = ("blob", "dark", "noise", "stripes", "gradient", "checker")
 
 
-def write_ytvos_valid(root):
-    """A Ref-YTVOS valid split of seeded 720 x 1280 JPEGs: a 12-frame video
-    (longer than the 3-frame clip) and a 4-frame one, two expressions each."""
+def ytvos_blob_frames(rng, n, v):
+    yy, xx = np.mgrid[0:CLI_H, 0:CLI_W]
+    frames = []
+    for k in range(n):
+        obj = (((yy - 300 - 8 * k) / 150.0) ** 2
+               + ((xx - 400 - 40 * k - 200 * v) / 220.0) ** 2) <= 1
+        img = 40 + 160 * rng.random((CLI_H, CLI_W, 3))
+        img[obj] = 0.4 * img[obj] + [20, 130, 40]
+        frames.append(img.astype(np.uint8))
+    return frames
+
+
+def ytvos_blob_videos():
+    """The seeded blob videos YTVOS_VIDEOS, name -> frames."""
+    rng = np.random.default_rng(17)
+    return {name: ytvos_blob_frames(rng, n, v) for v, (name, n) in enumerate(YTVOS_VIDEOS)}
+
+
+def ytvos_scene_frames(scene, rng):
+    """YTVOS_CLIP frames of one of YTVOS_SCENES, seeded."""
+    if scene == "blob":
+        return ytvos_blob_frames(rng, YTVOS_CLIP, 0)
+    yy, xx = np.mgrid[0:CLI_H, 0:CLI_W]
+    frames = []
+    for k in range(YTVOS_CLIP):
+        if scene == "dark":
+            img = np.zeros((CLI_H, CLI_W, 3))
+            img[200 + 10 * k:500 + 10 * k, 300:900] = 250
+        elif scene == "noise":
+            img = 255 * rng.random((CLI_H, CLI_W, 3))
+        elif scene == "stripes":
+            img = np.where(((xx + 20 * k) // 40 % 2)[..., None] == 1, [230, 30, 30], [30, 30, 230])
+        elif scene == "gradient":
+            img = np.stack([xx / CLI_W * 255, yy / CLI_H * 255,
+                            np.full((CLI_H, CLI_W), 40.0 * k)], -1)
+        else:
+            img = np.where(((xx // 80 + yy // 80 + k) % 2)[..., None] == 1, 255, 0) * [1, 1, 0.5]
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def write_ytvos_valid(root, videos):
+    """A Ref-YTVOS valid split of the given videos (name -> frames) as
+    JPEGs, frame i named 5 i, two expressions each."""
     from PIL import Image
 
-    rng = np.random.default_rng(17)
-    yy, xx = np.mgrid[0:CLI_H, 0:CLI_W]
     meta = {"videos": {}}
-    for v, (video, n) in enumerate(YTVOS_VIDEOS):
+    for video, frames in videos.items():
         d = os.path.join(root, "valid", "JPEGImages", video)
         os.makedirs(d)
-        names = [f"{5 * i:05d}" for i in range(n)]
-        for k, name in enumerate(names):
-            obj = (((yy - 300 - 8 * k) / 150.0) ** 2
-                   + ((xx - 400 - 40 * k - 200 * v) / 220.0) ** 2) <= 1
-            img = 40 + 160 * rng.random((CLI_H, CLI_W, 3))
-            img[obj] = 0.4 * img[obj] + [20, 130, 40]
-            Image.fromarray(img.astype(np.uint8)).save(os.path.join(d, f"{name}.jpg"),
-                                                       quality=90)
+        names = [f"{5 * i:05d}" for i in range(len(frames))]
+        for name, img in zip(names, frames):
+            Image.fromarray(img).save(os.path.join(d, f"{name}.jpg"), quality=90)
         meta["videos"][video] = {"frames": names, "expressions": {
             "0": {"exp": "the green blob moving right"}, "1": {"exp": "the background"}}}
     os.makedirs(os.path.join(root, "meta_expressions", "valid"))
@@ -2406,9 +2444,13 @@ def phase_infer_ytvos(results):
     """``python -m ocpg_tpu_torch.cli.infer_ytvos`` in this process
     (ytvos_r101_boxsup at full width, bf16) on a seeded valid split, chunked
     (--clip_len 3, --query_select global) and whole-video (--clip_len 0):
-    K1 8 per dispatch, one query per expression after the re-run, every
-    Annotations/<video>/<exp>/<frame>.png of both runs at 720 x 1280, the
-    two runs' masks agreeing on at least 99% of pixels (the share recorded)."""
+    K1 8 per dispatch, one query per expression after the re-run, at least
+    one chunk run again (video vidX, whose two chunks a probe run picked
+    from unlike scenes with different best queries), each re-run chunk's
+    mask logits those of a direct dispatch of its request with the query
+    forced, every Annotations/<video>/<exp>/<frame>.png of both runs at 720
+    x 1280, the two runs' masks agreeing on at least 99% of pixels (the
+    share recorded)."""
     from ocpg_tpu_torch.cli import infer_davis, infer_ytvos
 
     gc.collect()
@@ -2416,13 +2458,21 @@ def phase_infer_ytvos(results):
     smi = nvidia_smi_line()
     root = tempfile.mkdtemp(prefix="infer_ytvos_", dir=_build.BUILD_DIR)
     try:
-        tree = os.path.join(root, "ytvos")
-        write_ytvos_valid(tree)
         engines, picks = [], []
         init, select = infer_davis.init_engine, infer_ytvos.select_global_queries
 
         def keep(*args, **kwargs):
+            """init_engine, its engine kept and every run's requests and
+            results recorded."""
             model, engine = init(*args, **kwargs)
+            engine.calls, run = [], engine.run
+
+            def recorded(requests):
+                out = run(requests)
+                engine.calls.append((list(requests), out))
+                return out
+
+            engine.run = recorded
             engines.append(engine)
             return model, engine
 
@@ -2432,15 +2482,44 @@ def phase_infer_ytvos(results):
             picks.append((scores, [r.query_override for r in requests], meta, redo))
             return redo
 
-        outs, runs = {}, {}
+        def infer(tree, out, clip_len):
+            return infer_ytvos.main(["--ytvos_path", tree, "--output_dir", out,
+                                     "--clip_len", str(clip_len)])
+
         infer_ytvos.init_engine, infer_ytvos.select_global_queries = keep, keep_select
         try:
+            # the probe: each scene as a one-chunk video; each (scene,
+            # expression)'s best query and its margin over the second best
+            rng = np.random.default_rng(17)
+            scenes = {s: ytvos_scene_frames(s, rng) for s in YTVOS_SCENES}
+            probe = os.path.join(root, "probe")
+            write_ytvos_valid(probe, scenes)
+            infer(probe, os.path.join(root, "probe_out"), YTVOS_CLIP)
+            best = {}
+            for scene, (scores, _, meta, _) in zip(YTVOS_SCENES, picks):   # one per video
+                for k, (exp_id, _) in enumerate(meta):
+                    per_query = scores[k].max(-1)
+                    top2 = np.sort(per_query)[-2:]
+                    best[(scene, exp_id)] = (int(per_query.argmax()), float(top2[1] - top2[0]))
+            picks.clear()
+            pairs = [(min(best[(a, e)][1], best[(b, e)][1]), a, b, e)
+                     for e in ("0", "1") for i, a in enumerate(YTVOS_SCENES)
+                     for b in YTVOS_SCENES[i + 1:] if best[(a, e)][0] != best[(b, e)][0]]
+            check(pairs, f"infer_ytvos: every probe scene has the same best query {best}")
+            margin, first, second, exp_mixed = max(pairs)
+            log(f"infer_ytvos: probe best (query, margin) per scene and expression {best}; "
+                f"vidX = {first} + {second} (expression {exp_mixed}, margin {margin:.3g})")
+
+            videos = ytvos_blob_videos()
+            videos[YTVOS_MIXED] = scenes[first] + scenes[second]
+            tree = os.path.join(root, "ytvos")
+            write_ytvos_valid(tree, videos)
+            outs, runs = {}, {}
             for name, clip_len in (("chunked", YTVOS_CLIP), ("whole", 0)):
                 outs[name] = os.path.join(root, name)
                 reset_counts()
                 t0 = time.perf_counter()
-                runs[name] = infer_ytvos.main(["--ytvos_path", tree, "--output_dir",
-                                               outs[name], "--clip_len", str(clip_len)])
+                runs[name] = infer(tree, outs[name], clip_len)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts = read_counts()
@@ -2461,12 +2540,34 @@ def phase_infer_ytvos(results):
                 chosen.setdefault(exp_id, set()).add(q)
             check(all(len(v) == 1 for v in chosen.values()),
                   f"infer_ytvos: an expression's chunks use queries {chosen}")
+        rerun = runs["chunked"]["rerun"]
+        check(rerun >= 1, "infer_ytvos: global query selection ran no chunk again")
+        # each re-run chunk against a direct dispatch of its request
+        from ocpg_tpu_torch.engine.infer import InferRequest
+
+        chunked = engines[-2]
+        forced = [(r, out) for requests, outs_ in chunked.calls
+                  for r, out in zip(requests, outs_) if r.query_override >= 0]
+        check(len(forced) == rerun, f"infer_ytvos: {len(forced)} forced requests, {rerun} re-runs")
+        worst = 0.0
+        for r, got in forced:
+            [want] = chunked.run([InferRequest(r.frames, r.text_ids, r.text_mask,
+                                               query_override=r.query_override)])
+            scale = max(float(np.abs(want).max()), 1e-6)
+            worst = max(worst, float(np.abs(got - want).max()) / scale)
+            differ = ((got > 0) != (want > 0)) & (np.abs(want) > 1e-3)
+            check(got.shape == want.shape and not differ.any(),
+                  f"infer_ytvos: a re-run chunk's masks differ from a direct dispatch with "
+                  f"query {r.query_override} in {int(differ.sum())} pixels")
+        log(f"infer_ytvos: {rerun} chunk(s) run again with the global query; their mask "
+            f"logits within {worst:.2e} of scale of a direct query_override dispatch, masks "
+            f"equal")
         from PIL import Image
 
         same = total = 0
-        for video, n in YTVOS_VIDEOS:
+        for video, frames in videos.items():
             for exp_id in ("0", "1"):
-                for i in range(n):
+                for i in range(len(frames)):
                     masks = [np.asarray(Image.open(os.path.join(
                         outs[r], "Annotations", video, exp_id, f"{5 * i:05d}.png")))
                         for r in ("chunked", "whole")]
@@ -2479,8 +2580,8 @@ def phase_infer_ytvos(results):
                                     f"on {same / total:.4f} of pixels (< 0.99)")
         log(f"infer_ytvos: chunked (global query) and whole-video masks agree on "
             f"{100 * same / total:.3f}% of {total} pixels")
-        results["infer_ytvos"] = {"agreement": same / total,
-                                  "rerun": runs["chunked"]["rerun"]}
+        results["infer_ytvos"] = {"agreement": same / total, "rerun": rerun,
+                                  "rerun_vs_direct": worst}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2702,7 +2803,7 @@ def phase_pretrained(results):
                     "--backbone", "resnet101"])
         tool_s = time.perf_counter() - t0
         tree = os.path.join(root, "ytvos")
-        write_ytvos_valid(tree)
+        write_ytvos_valid(tree, ytvos_blob_videos())
         pngs = {}
         for name, ckpt in (("pth", pth), ("dir", ckdir)):
             out = os.path.join(root, f"infer_{name}")
@@ -2906,6 +3007,160 @@ def phase_pseudo_labels(results):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- demo_e2e --
+# the demo at a shortened length: 3 epochs of a 2-video train split (96
+# steps), one valid video
+DEMO_EPOCHS, DEMO_TRAIN_VIDEOS, DEMO_VALID_VIDEOS = 3, 2, 1
+
+
+def finite_unit(x) -> bool:
+    return math.isfinite(x) and 0.0 <= x <= 1.0
+
+
+def phase_demo_e2e(results):
+    """``ocpg_tpu_torch.scripts.demo_synthetic_e2e`` in this process at a
+    shortened length (the small ResNet-50 model, 2+2 layers, bf16, 128 x
+    160): random-weight infer_davis and J&F, train_cli, trained infer_davis
+    and J&F.  K2 4 per train step, K1 4 per train step and per inference
+    dispatch, K3-K7 never; the record has the JAX script's keys with this
+    card's name and power limit as its platform, the loss of the last epoch
+    below the first's, every J&F finite in [0, 1]."""
+    from ocpg_tpu_torch.scripts import demo_synthetic_e2e as demo
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="demo_e2e_", dir=_build.BUILD_DIR)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = demo.main(["--epochs", str(DEMO_EPOCHS), "--train_videos", str(DEMO_TRAIN_VIDEOS),
+                         "--valid_videos", str(DEMO_VALID_VIDEOS), "--workdir", root,
+                         "--out", os.path.join(root, "record.json")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        layers = demo.DEMO_CFG["enc_layers"] + demo.DEMO_CFG["dec_layers"]
+        steps = rec["steps"]
+        check(counts["K2"] == layers * steps and counts["K1"] > layers * steps
+              and counts["K1"] % layers == 0
+              and all(counts[k] == 0 for k in ("K3", "K4", "K5", "K6", "K7")),
+              f"demo_e2e: {steps} train steps launched {counts}")
+        results["paths"]["demo_e2e"] = counts
+        check(sorted(rec) == sorted(["platform", "devices", "config", "dtype", "epochs", "steps",
+                                     "random", "train", "trained", "jf_random", "jf_trained"])
+              and rec["platform"] == smi and rec["devices"] == torch.cuda.device_count(),
+              f"demo_e2e record {sorted(rec)} on {rec['platform']}")
+        train = rec["train"]
+        check(train["epochs"] == DEMO_EPOCHS and train["loss_last"] < train["loss_first"],
+              f"demo_e2e: the loss did not fall {train}")
+        jfs = [rec["jf_random"], rec["jf_trained"], *rec["random"]["jf_per_annotator"],
+               *rec["trained"]["jf_per_annotator"]]
+        check(all(finite_unit(x) for x in jfs), f"demo_e2e J&F {jfs}")
+        log(f"demo_e2e: {steps} steps in {train['train_wall_s']} s of train_cli (whole run "
+            f"{wall:.1f} s), loss {train['loss_first']} -> {train['loss_last']}, J&F random "
+            f"{rec['jf_random']} -> trained {rec['jf_trained']}; launches {counts} [{smi}]")
+        results["demo_e2e"] = rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- long_run --
+# the long run at a shortened length: 60 steps, the checkpoint at 30, a
+# 10-step replay (twice), val at steps 1 and 60
+LONG_STEPS, LONG_CKPT, LONG_REPLAY, LONG_VAL_BATCHES = 60, 30, 10, 2
+
+
+def phase_long_run(results):
+    """``ocpg_tpu_torch.scripts.train_long_run --dataset davis`` in this
+    process at a shortened length: the full-width ytvos_r101_boxsup model
+    (bf16, B=1, T=3, 512 x 640) fed by ClipLoader(compact=True) from a
+    Ref-DAVIS tree of 6 videos x 16 frames at 720 x 1280.  K1 and K2 8 per
+    train step (live and both replays) and K1 8 per val forward, K3-K7
+    never; the restored state bit-identical to the saved one, the first
+    replayed loss equal to the live one and the first two within 1e-3
+    relative (the script raises otherwise), every loss finite, the val J
+    and F finite in [0, 1]."""
+    from ocpg_tpu_torch.scripts import train_long_run as long_run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="long_run_", dir=_build.BUILD_DIR)
+    try:
+        config = long_run.LongRunConfig(steps=LONG_STEPS, ckpt_step=LONG_CKPT,
+                                        replay_steps=LONG_REPLAY, eval_every=LONG_STEPS,
+                                        dataset="davis", out=os.path.join(root, "record.json"))
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = long_run.run(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        train_steps = LONG_STEPS + 2 * LONG_REPLAY
+        val_forwards = 2 * LONG_VAL_BATCHES
+        check(counts == counts_of(K1=8 * (train_steps + val_forwards), K2=8 * train_steps),
+              f"long_run: {train_steps} train steps and {val_forwards} val forwards "
+              f"launched {counts}")
+        results["paths"]["long_run"] = counts
+        check(rec["platform"] == smi and rec["dataset"] == "davis"
+              and rec["resume_state_bit_identical"]
+              and rec["resume_replay_steps"] == LONG_REPLAY
+              and rec["replay_losses_restored"][0] == rec["replay_losses_live"][0]
+              and all(math.isfinite(x) for x in rec["curve_every_20"]
+                      + rec["replay_losses_live"] + rec["replay_losses_restored"]
+                      + rec["replay_losses_repeat"]),
+              f"long_run record {rec}")
+        check([p["step"] for p in rec["val_jf_curve"]] == [1, LONG_STEPS]
+              and all(finite_unit(p["J"]) and finite_unit(p["F"]) for p in rec["val_jf_curve"]),
+              f"long_run val curve {rec['val_jf_curve']}")
+        log(f"long_run: {LONG_STEPS} steps ({rec['params_m']} M parameters) in {rec['wall_s']} "
+            f"s = {rec['ms_per_step_e2e']} ms/step loader-fed, peak {rec['peak_memory_gib']} "
+            f"GiB; loss {rec['loss_first']:.3f} -> last-50 mean {rec['loss_last50_mean']:.3f}; "
+            f"val {rec['val_jf_curve']}; checkpoint save {rec['checkpoint_save_wall_s']} s; "
+            f"resume: state bit-identical, replay bit-exact {rec['resume_bit_exact']}, max "
+            f"rel diff {rec['resume_max_rel_diff']:.3e} (repeat {rec['replay_repeat_max_rel_diff']:.3e}); "
+            f"whole phase {wall:.1f} s; launches {counts} [{smi}]")
+        results["long_run"] = rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------- memory_envelope --
+def phase_memory_envelope(results):
+    """``ocpg_tpu_torch.scripts.memory_envelope --quick`` in this process:
+    the R101 train rows B=1 and B=2 (T=3, 512 x 640, two steps each) and
+    eval rows T=5 and T=36 (384 x 640), each on a fresh full-width bf16
+    model.  K1 and K2 8 per train step, K1 8 per eval forward, K3-K7 never;
+    every row ok (none runs out of memory on an 80 GB card), its peaks
+    above what the process held before it positive and hbm_frac in (0, 1)."""
+    from ocpg_tpu_torch.scripts import memory_envelope
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    reset_counts()
+    rec = memory_envelope.envelope(quick=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    train_grid, eval_grid = memory_envelope.grids(quick=True)
+    check(counts == counts_of(K1=8 * (2 * len(train_grid) + len(eval_grid)),
+                              K2=8 * 2 * len(train_grid)),
+          f"memory_envelope launched {counts}")
+    results["paths"]["memory_envelope"] = counts
+    rows = rec["rows"]
+    check(rec["platform"] == smi and len(rows) == len(train_grid) + len(eval_grid)
+          and all(r["status"] == "ok" and r["allocated_mib"] > 0 and r["reserved_mib"] > 0
+                  and 0 < r["hbm_frac"] < 1 for r in rows),
+          f"memory_envelope rows {rows}")
+    for r in rows:
+        log(f"memory_envelope: {r['mode']} {r['backbone']} B={r['batch']} T={r['frames']} "
+            f"{r['canvas']}{' recompute' if r.get('remat') else ''}: allocated "
+            f"{r['allocated_mib']} MiB, reserved {r['reserved_mib']} MiB, hbm_frac "
+            f"{r['hbm_frac']} ({r['wall_s']} s) [{smi}]")
+    results["memory_envelope"] = rec
+
+
 # ------------------------------------------------------------------ std_op --
 def phase_std_op(results):
     """The standard-layout op once, forward and backward, at the train
@@ -2974,7 +3229,9 @@ def main() -> int:
                      ("eval_cli", phase_eval_cli),
                      ("pretrain_cli", phase_pretrain_cli), ("infer_davis", phase_infer_davis),
                      ("infer_ytvos", phase_infer_ytvos), ("pretrained", phase_pretrained),
-                     ("pseudo_labels", phase_pseudo_labels), ("std_op", phase_std_op),
+                     ("pseudo_labels", phase_pseudo_labels), ("demo_e2e", phase_demo_e2e),
+                     ("long_run", phase_long_run), ("memory_envelope", phase_memory_envelope),
+                     ("std_op", phase_std_op),
                      ("msda_bench", phase_msda_bench)):
         t0 = time.perf_counter()
         fn(results)

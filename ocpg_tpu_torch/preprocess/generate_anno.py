@@ -197,7 +197,7 @@ def run_ytvos(root: str, model, use_crf: bool, split: str = "train") -> None:
         print(f"done {vdir.name}", flush=True)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser("ocpg_tpu_torch.preprocess.generate_anno",
                                 description="Pseudo-label generation (the PyTorch port "
                                             "of ocpg_tpu.preprocess.generate_anno).")
@@ -207,7 +207,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--crf", action="store_true", help="apply the dense-CRF refinement")
     p.add_argument("--device", default="cuda",
                    help="torch device of the sim model (cpu for the tests)")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = get_args(argv)
 
     from .sim_model import init_sim_model, load_resnet_weights
 

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from typing import Dict, Optional, Sequence
@@ -47,6 +46,7 @@ import torch
 
 from ocpg_tpu_torch.ops import ms_deform_attn as msda
 from ocpg_tpu_torch.ops import ms_deform_attn_variants as variants
+from ocpg_tpu_torch.utils.hw import nvidia_smi_line
 
 SHAPE_SETS = {
     "eval": ((48, 80), (24, 40), (12, 20), (6, 10)),
@@ -150,15 +150,6 @@ def paired_ms(fn, device, n_long: int = 16, n_short: int = 2, pairs: int = 5) ->
     diffs = [(_elapsed_ms(fn, n_long, device) - _elapsed_ms(fn, n_short, device))
              / (n_long - n_short) for _ in range(pairs)]
     return float(np.median(diffs))
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def main(argv: Optional[Sequence[str]] = None, device="cuda") -> dict:

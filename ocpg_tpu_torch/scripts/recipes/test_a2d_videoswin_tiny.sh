@@ -1,0 +1,18 @@
+#!/usr/bin/env bash
+# The port's twin of scripts/test_a2d_videoswin_tiny.sh:
+# the same flags and environment defaults, run through _launch.sh (one
+# GPU, or torchrun over NGPUS).
+# A2D-Sentences evaluation, Video Swin-T (the reference's
+# scripts/dist_test_a2d_videoswint.sh).
+# Its clips fit under the memory-envelope row
+# `eval video_swin_b_p4w7 B=1 T=5` of
+# ocpg_tpu_torch/scripts/memory_envelope.py (Swin-B: the
+# larger backbone):
+# peak 1528.7 MiB allocated, hbm_frac 0.019, on an NVIDIA H100
+# 80GB HBM3 at 700.00 W.
+set -ex
+. "$(dirname "${BASH_SOURCE[0]}")/_launch.sh"
+DATA_ROOT=${DATA_ROOT:-/data/a2d}
+CKPT=${CKPT:-output/checkpoints}
+ocpg_launch ocpg_tpu_torch.cli.evaluate \
+  --dataset_file a2d --backbone video_swin_t_p4w7 --a2d_path "$DATA_ROOT" --checkpoint "$CKPT"

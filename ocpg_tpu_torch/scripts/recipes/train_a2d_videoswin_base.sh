@@ -1,0 +1,20 @@
+#!/usr/bin/env bash
+# The port's twin of scripts/train_a2d_videoswin_base.sh:
+# the same flags and environment defaults, run through _launch.sh (one
+# GPU, or torchrun over NGPUS).
+# A2D-Sentences, Video Swin-B with per-block recompute (the reference's
+# scripts/dist_train_a2d_videoswinb.sh, whose per-GPU batch is 2).
+# Per-GPU batch 2 (OCPG_BS overrides it) fits the memory-envelope row
+# `train video_swin_b_p4w7 B=2 T=3 recompute on` of
+# ocpg_tpu_torch/scripts/memory_envelope.py:
+# peak 8259.7 MiB allocated, hbm_frac 0.101, on an NVIDIA H100
+# 80GB HBM3 at 700.00 W.
+# --batch_size is per GPU (per chip in the JAX recipe) and the learning
+# rates scale by max(NGPUS / 4, 1), as the JAX CLI scales them by its chips.
+set -ex
+. "$(dirname "${BASH_SOURCE[0]}")/_launch.sh"
+DATA_ROOT=${DATA_ROOT:-/data/a2d}
+ocpg_launch ocpg_tpu_torch.cli.train \
+  --dataset_file a2d --backbone video_swin_b_p4w7 --supervision box \
+  --a2d_path "$DATA_ROOT" --batch_size ${OCPG_BS:-2} \
+  --output_dir output/train_a2d_videoswin_base --epochs 12 --lr_drop 3 5 --use_checkpoint

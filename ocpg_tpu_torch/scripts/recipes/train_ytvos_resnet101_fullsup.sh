@@ -1,0 +1,20 @@
+#!/usr/bin/env bash
+# The port's twin of scripts/train_ytvos_resnet101_fullsup.sh:
+# the same flags and environment defaults, run through _launch.sh (one
+# GPU, or torchrun over NGPUS).
+# Ref-YouTube-VOS, ResNet-101, full mask supervision (the reference's
+# scripts/dist_train_ytvos_resnet101.sh).
+# The CLI's default per-GPU batch 1 fits the memory-envelope row
+# `train resnet101 B=1 T=3 recompute off` of
+# ocpg_tpu_torch/scripts/memory_envelope.py:
+# peak 5212.0 MiB allocated, hbm_frac 0.064, on an NVIDIA H100
+# 80GB HBM3 at 700.00 W.
+# --batch_size is per GPU (per chip in the JAX recipe) and the learning
+# rates scale by max(NGPUS / 4, 1), as the JAX CLI scales them by its chips.
+set -ex
+. "$(dirname "${BASH_SOURCE[0]}")/_launch.sh"
+DATA_ROOT=${DATA_ROOT:-/data/ytvos}
+ocpg_launch ocpg_tpu_torch.cli.train \
+  --dataset_file ytvos --backbone resnet101 --supervision full \
+  --ytvos_path "$DATA_ROOT" \
+  --output_dir output/train_ytvos_resnet101_fullsup --epochs 10 --lr_drop 6 8

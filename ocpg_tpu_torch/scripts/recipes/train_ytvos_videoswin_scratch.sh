@@ -1,0 +1,21 @@
+#!/usr/bin/env bash
+# The port's twin of scripts/train_ytvos_videoswin_scratch.sh:
+# the same flags and environment defaults, run through _launch.sh (one
+# GPU, or torchrun over NGPUS).
+# Ref-YouTube-VOS, Video Swin-T from scratch (the reference's
+# scripts/dist_train_scratch_ytvos_videoswin.sh).
+# The CLI's default per-GPU batch 1 fits under the memory-envelope row
+# `train video_swin_b_p4w7 B=2 T=3 recompute off` of
+# ocpg_tpu_torch/scripts/memory_envelope.py (Swin-B
+# at batch 2: larger):
+# peak 12849.9 MiB allocated, hbm_frac 0.157, on an NVIDIA H100
+# 80GB HBM3 at 700.00 W.
+# --batch_size is per GPU (per chip in the JAX recipe) and the learning
+# rates scale by max(NGPUS / 4, 1), as the JAX CLI scales them by its chips.
+set -ex
+. "$(dirname "${BASH_SOURCE[0]}")/_launch.sh"
+DATA_ROOT=${DATA_ROOT:-/data/ytvos}
+ocpg_launch ocpg_tpu_torch.cli.train \
+  --dataset_file ytvos --backbone video_swin_t_p4w7 --supervision box \
+  --ytvos_path "$DATA_ROOT" \
+  --output_dir output/train_ytvos_videoswin_scratch --epochs 10 --lr_drop 6 8

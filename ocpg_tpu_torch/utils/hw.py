@@ -52,3 +52,30 @@ def gpu_spec(device=None) -> GpuSpec:
             return GpuSpec(kind, bf16, f32, rate, int(mem), assumed=False)
     bf16, f32, rate, mem = _SPECS[_DEFAULT]
     return GpuSpec(kind or f"{_DEFAULT} (assumed)", bf16, f32, rate, int(mem), assumed=True)
+
+
+def nvidia_smi_line() -> str:
+    """The first GPU's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (for
+    example "NVIDIA H100 80GB HBM3, 700.00 W"): a card may be set below its
+    full power and then runs slower, so every number a script keeps stands
+    beside this line.  Raises if nvidia-smi fails."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_record(device) -> dict:
+    """Where a script ran, for its JSON record: ``platform`` the card's
+    name and power limit (``nvidia_smi_line``) or ``"cpu"``, ``devices``
+    ``torch.cuda.device_count()`` (0 on the CPU)."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return {"platform": "cpu", "devices": 0}
+    return {"platform": nvidia_smi_line(), "devices": torch.cuda.device_count()}

@@ -1,11 +1,11 @@
 """The PyTorch port and chip_smoke.py import nothing of JAX: the GPU machine
 has no JAX, and the port keeps its own copies of what it needs from
 ocpg_tpu.  The data path, the CLIs and tools, the eval engine, the
-metrics, the pseudo-label generator and the utilities import cv2, PIL and
-h5py only in the calls that need them (and transformers only where a
-tokenizer directory is loaded), so importing them loads none of them (the
-inference CLIs run without cv2 unless ``--visualize``:
-tests/test_torch_infer_cli.py).  Each
+metrics, the pseudo-label generator, the whole-system scripts and the
+utilities import cv2, PIL and h5py only in the calls that need them (and
+transformers only where a tokenizer directory is loaded), so importing
+them loads none of them (the inference CLIs run without cv2 unless
+``--visualize``: tests/test_torch_infer_cli.py).  Each
 import runs in a fresh interpreter, so this process's own imports cannot
 hide one."""
 import os
@@ -47,12 +47,14 @@ def test_port_has_the_slice_modules():
                  "cli.evaluate", "cli.eval_davis", "cli.pretrain", "cli.infer_davis",
                  "cli.infer_ytvos", "utils.torch_weights", "utils.hw", "cli.tools",
                  "preprocess.sim_model", "preprocess.dense_crf", "preprocess.generate_anno",
-                 "parallel", "parallel.distributed", "parallel.dryrun"):
+                 "parallel", "parallel.distributed", "parallel.dryrun",
+                 "scripts.demo_synthetic_e2e", "scripts.train_long_run",
+                 "scripts.memory_envelope"):
         assert f"ocpg_tpu_torch.{name}" in mods, name
 
 
 # modules of the data path, the CLIs and tools, the eval engine, the
-# metrics, the pseudo-label generator and the utilities
+# metrics, the pseudo-label generator, the scripts and the utilities
 DATA_PATH = ["ocpg_tpu_torch." + m for m in (
     "cli.train", "data.datasets", "data.loader", "data.transforms", "data.refexp",
     "data.refer", "data.imageio", "native.io", "parallel.mesh", "parallel.distributed",
@@ -63,7 +65,8 @@ DATA_PATH = ["ocpg_tpu_torch." + m for m in (
     "models.postprocessors", "engine.evaluate", "utils.visualize", "cli.evaluate",
     "cli.eval_davis", "cli.pretrain", "cli.infer_davis", "cli.infer_ytvos",
     "utils.torch_weights", "utils.hw", "cli.tools", "preprocess.sim_model",
-    "preprocess.dense_crf", "preprocess.generate_anno")]
+    "preprocess.dense_crf", "preprocess.generate_anno", "scripts.demo_synthetic_e2e",
+    "scripts.train_long_run", "scripts.memory_envelope")]
 NO_JAX = ("jax", "jaxlib", "flax", "optax", "transformers", "ocpg_tpu")
 
 
