@@ -219,6 +219,24 @@ exit, no result line) if it goes wrong:
                  (``ocpg_tpu_torch.scripts.bench_msda_kernel``, variants cm
                  r4 fk sep, --bwd, eval shapes, checked against sep): every
                  check within 2e-2, K1, K2, K5 and K6 each launched.
+24. bench      -- the port's bench (``ocpg_tpu_torch.scripts.bench``, the
+                 root bench.py's stages: the A2D R101 and Swin-B eval
+                 forwards at 1 x 5 x 384 x 640 and the R101 train step at
+                 B=1 and B=2, T=3, 512 x 640, bf16) in this process with its
+                 paired runs shortened (8/2 x 3 forwards, 4/1 x 3 steps):
+                 every stage present and none failed, the rates above 0, the
+                 dense and kernel-inclusive MFUs in (0, 1.05], the kernels'
+                 GFLOP above 0; per stage K1 8 per forward and per step, K2
+                 8 per step, K7 24 per Swin-B forward; the R101 forward's
+                 dense GFLOP beside the JAX bench's HLO count.
+25. bench_scripts -- the measurement drivers of ocpg_tpu_torch/scripts at
+                 their shortest: bench_train (timing with --trace, then
+                 --e2e on a Ref-DAVIS tree), bench_serving, bench_eval_e2e
+                 (--dataset jhmdb), bench_loader (--dataset davis),
+                 bench_swin_micro, bench_train_sweep (one R101 point in a
+                 child process, whose launches it reports) and
+                 profile_bench: each record's keys and values, launches per
+                 forward and step as above.
 
 Every launch counter (K1-K7) is reset just before each of the phases
 serve, a2d, train, swin_serve, swin_a2d, swin_train (each of its two runs),
@@ -227,8 +245,9 @@ the ranks count in their own processes and return their counts, which
 are summed), eval_cli (each of its two runs),
 pretrain_cli, infer_davis, infer_ytvos (each of its two runs), pretrained
 (its forward, each infer_ytvos run and the train run), pseudo_labels,
-demo_e2e, long_run, memory_envelope, std_op and msda_bench runs its path
-and read just after; the
+demo_e2e, long_run, memory_envelope, std_op, msda_bench, bench (each of
+its four stages, by the bench itself) and bench_scripts (each script)
+runs its path and read just after; the
 ``kernels`` line gives each kernel's count on every path.
 
 It imports nothing of JAX.  The last three lines of its output are the
@@ -261,7 +280,6 @@ from ocpg_tpu_torch.engine.checkpoint import CheckpointManager
 from ocpg_tpu_torch.engine.infer import ClipInferenceEngine, InferRequest
 from ocpg_tpu_torch.engine.optim import build_optimizer, param_group_label
 from ocpg_tpu_torch.engine.train import make_train_step
-from ocpg_tpu_torch.models import backbone_video_swin as video_swin
 from ocpg_tpu_torch.models.build import build_model, build_weight_dict, criterion_config
 from ocpg_tpu_torch.models.text_encoder import SimpleTokenizer
 from ocpg_tpu_torch.ops import _build
@@ -269,10 +287,21 @@ from ocpg_tpu_torch.ops import image
 from ocpg_tpu_torch.ops import ms_deform_attn as msda
 from ocpg_tpu_torch.ops import ms_deform_attn_variants as msda_var
 from ocpg_tpu_torch.ops import window_attention as wattn
+# the MSDA and window-attention work formulas the bounds read
+from ocpg_tpu_torch.ops.ms_deform_attn import msda_bwd_work, msda_work
+from ocpg_tpu_torch.ops.window_attention import wattn_work
 from ocpg_tpu_torch.preprocess.sim_model import no_tf32
 from ocpg_tpu_torch.scripts import bench_msda_kernel
-from ocpg_tpu_torch.scripts.train_long_run import palette_png
+from ocpg_tpu_torch.scripts.bench_eval_e2e import JHMDB_H, JHMDB_W, build_jhmdb_tree
+# the Swin-B serving calls' geometry (window, head width, grids, heads) and
+# the window attention's seeded inputs
+from ocpg_tpu_torch.scripts.bench_swin_micro import (SWIN_GRIDS, SWIN_HEAD_DIM, SWIN_HEADS,
+                                                     swin_call, wattn_inputs)
 from ocpg_tpu_torch.utils.hw import gpu_spec, nvidia_smi_line
+# the timing and profiling helpers and the launch counters (reset, read)
+from ocpg_tpu_torch.utils.profiling import LAUNCH_COUNTERS, cuda_ms, cuda_times, profile_run
+from ocpg_tpu_torch.utils.profiling import launch_counts as read_counts
+from ocpg_tpu_torch.utils.profiling import reset_launch_counts as reset_counts
 # the model's MSDA (M, D), the serving and train paths' levels and frames,
 # and the seeded MSDA inputs (uniform or clustered samples)
 from ocpg_tpu_torch.scripts.bench_msda_bwd import (HEAD_DIM, HEADS, SERVE_N, SERVE_SHAPES,
@@ -284,16 +313,9 @@ SPEC = gpu_spec()
 HBM_BYTES_PER_S = SPEC.hbm_bytes_per_s
 F32_FLOPS_PER_S = SPEC.peak_flops_f32
 BF16_FLOPS_PER_S = SPEC.peak_flops_bf16
-# cycles per second of torch.cuda._sleep's spin (an SM clock at or above the
-# card's; a slower clock only lengthens the sleep)
-SLEEP_CYCLES_PER_S = 2.0e9
 # the decoder calls' queries (Lq = 5)
 QUERIES = 5
-# Swin-B serving path (video_swin_b_p4w7, one 5 x 384 x 640 clip): the token
-# grid and heads of each stage; the (8, 7, 7) window clamps to T = 5, n = 245
-SWIN_T, SWIN_WINDOW, SWIN_HEAD_DIM = 5, (8, 7, 7), 32
-SWIN_GRIDS = ((96, 160), (48, 80), (24, 40), (12, 20))
-SWIN_HEADS = (4, 8, 16, 32)
+# Swin-B: blocks (each launches K7 once a forward)
 SWIN_B_BLOCKS = 24
 # Swin-B train path (one 3 x 512 x 640 clip): the window clamps to T = 3,
 # n = 147 = 9 x 16 + 3, so the tensor-core body has a ragged last row tile;
@@ -301,11 +323,6 @@ SWIN_B_BLOCKS = 24
 SWIN_TRAIN_T = 3
 SWIN_TRAIN_GRIDS = ((128, 160), (64, 80), (32, 40), (16, 20))
 SWIN_TRAIN_WINDOWS = (437, 120, 30, 9)
-# launch counters of the port's kernels: (name, module, attribute)
-COUNTERS = (("K1", msda, "launches"), ("K2", msda, "bwd_launches"),
-            ("K3", msda, "std_launches"), ("K4", msda, "std_bwd_launches"),
-            ("K5", msda_var, "r4_launches"), ("K6", msda_var, "fk_launches"),
-            ("K7", wattn, "launches"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -317,83 +334,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_times(fn, iters: int, warmup: int = 3):
-    """(device ms, host ms) per call of fn() over iters calls.  The calls
-    queue up behind a sleep kernel that outlasts the host's enqueueing, so
-    the CUDA events around them time the device, not the rate at which the
-    host launches; the host's enqueue time per call is returned beside it."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    once = time.perf_counter() - t0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2 * once * iters + 1e-3, 2.0) * SLEEP_CYCLES_PER_S))
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    host_ms = (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, host_ms
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn() over iters launches (cuda_times)."""
-    return cuda_times(fn, iters, warmup)[0]
-
-
 # ------------------------------------------------------------------ kernel --
-def in_map_corners(shapes, x, y):
-    """How many bilinear corners of these samples fall inside their map."""
-    corners = 0
-    for lid, (h, w) in enumerate(shapes):
-        xp = x[:, :, lid] * w - 0.5
-        yp = y[:, :, lid] * h - 0.5
-        x0, y0 = torch.floor(xp), torch.floor(yp)
-        for cx, cy in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
-            corners += int(((cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)).sum())
-    return corners
-
-
-def msda_work(shapes, value, x, y, aw):
-    """(bytes, flops) the forward needs on these inputs: each input read
-    once, the output written once; per in-map corner one weight product and
-    a multiply-add per channel."""
-    n, s, m, d = value.shape
-    nbytes = (value.numel() * value.element_size() + 3 * x.numel() * 4
-              + n * x.shape[-1] * m * d * value.element_size())
-    return nbytes, in_map_corners(shapes, x, y) * (2 * d + 2) + x.numel() * 12
-
-
-def msda_bwd_work(shapes, value, x, y, aw):
-    """(bytes, flops) the backward needs on these inputs: value, g, x, y and
-    aw read once, d_value, d_x, d_y and d_aw written once; per in-map corner
-    and channel the multiply-add of t_c = sum_d g * v_c and the product
-    (aw * w_c) * g added into d_value; per sample the coordinates, the four
-    weights and their products with aw, and d_aw, d_x, d_y as sums over
-    the four t_c."""
-    n, s, m, d = value.shape
-    gbytes = n * x.shape[-1] * m * d * value.element_size()
-    nbytes = 2 * value.numel() * value.element_size() + gbytes + 6 * x.numel() * 4
-    return nbytes, in_map_corners(shapes, x, y) * 4 * d + x.numel() * 40
-
-
-def reset_counts() -> None:
-    for _, mod, attr in COUNTERS:
-        setattr(mod, attr, 0)
-
-
-def read_counts() -> dict:
-    return {name: getattr(mod, attr) for name, mod, attr in COUNTERS}
-
-
 def counts_of(**launched) -> dict:
     """The expected counts of a path: the named kernels, every other one 0."""
-    return {name: launched.get(name, 0) for name, _, _ in COUNTERS}
+    return {name: launched.get(name, 0) for name, _, _ in LAUNCH_COUNTERS}
 
 
 def timed_bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
@@ -685,42 +629,6 @@ def resize_checks(results):
             f"{entry['fwd_bwd_ms']:.4f} ms (F.interpolate "
             f"{entry['interpolate_fwd_bwd_ms']:.4f})")
         results["resize"] = entry
-
-
-def swin_call(grid, heads, window=SWIN_WINDOW, frames=SWIN_T):
-    """(bw, heads, n, SW-MSA mask) of the window attention of a shifted
-    block at one stage of the serving clip (one clip, so nW = bw)."""
-    dims = (frames,) + grid
-    ws, ss = video_swin._get_window_size(dims, window, tuple(w // 2 for w in window))
-    tp, hp, wp = (-(-d // w) * w for d, w in zip(dims, ws))
-    mask = video_swin._sw_attn_mask(tp, hp, wp, ws, ss)
-    return mask.shape[0], heads, ws[0] * ws[1] * ws[2], mask
-
-
-def wattn_inputs(bw, heads, n, dtype, seed):
-    """q (pre-scaled, contiguous), k and v (slices of one qkv tensor, as the
-    Swin module hands them over) and a bias table gather's stand-in, all in
-    dtype."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    dh = SWIN_HEAD_DIM
-    qkv = torch.randn(bw, n, 3, heads, dh, generator=g, device="cuda").to(dtype)
-    bias = (torch.randn(heads, n, n, generator=g, device="cuda") * 0.5).to(dtype)
-    return qkv[:, :, 0] * dh ** -0.5, qkv[:, :, 1], qkv[:, :, 2], bias
-
-
-def wattn_work(q, mask):
-    """(bytes, flops, L2 bytes) of one call: q, k, v, bias and the mask
-    read once in the input's type, the output written once; the two
-    products q.k^T and P.v (2 flops per multiply-add); and the bytes of bias
-    and mask that the kernel reads from L2 (every (window, head) reads its
-    n x n of each: the bias once per window, the mask once per head)."""
-    bw, n, h, dh = q.shape
-    es = q.element_size()
-    nbytes = 4 * q.numel() * es + h * n * n * es
-    if mask is not None:
-        nbytes += mask.numel() * es
-    l2_bytes = bw * h * n * n * es * (1 if mask is None else 2)
-    return nbytes, 4 * bw * h * n * n * dh, l2_bytes
 
 
 def wattn_held(got, want, scale, dtype):
@@ -1114,87 +1022,6 @@ def phase_swin_serve(results):
             f"K1 {prof['classes'].get('msda', 0.0):.2f} ms")
 
 
-KERNEL_CLASSES = (   # (class, substrings of CUDA kernel names), first match wins
-    ("memcpy", ("memcpy",)),
-    ("wattn", ("wattn_fwd",)),
-    ("msda_cm_bwd", ("msda_bwd_kernel",)),
-    ("msda", ("msda_fwd_kernel", "msda_r4_kernel", "msda_fk_kernel")),
-    ("fft", ("fft",)),
-    ("conv", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn")),
-    ("gemm", ("gemm", "cutlass", "matmul", "sm90_xmma", "nvjet")),
-    ("optimizer", ("multi_tensor", "foreach", "adam")),
-    ("norm", ("norm",)),
-    ("softmax", ("softmax",)),
-    ("resize", ("upsample", "interp", "grid_sampler")),
-    ("gather/scatter", ("gather", "scatter", "index")),
-    ("copy/cast", ("copy", "cat", "transpose", "permute", "fill")),
-    ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "unrolled")),
-)
-
-
-def profile_run(label, fn):
-    """fn() under torch.profiler: device busy share and device time by
-    kernel class and by kernel.  Returns {"classes": device ms by class,
-    "busy_ms": their sum, "wall_ms", "wattn_bwd_ms": the device ms of the
-    kernels launched under K7's Function backward (its plain recompute)},
-    or None when the profiler recorded no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for ev in prof.key_averages():
-        if ev.key.startswith(("Optimizer.", "ProfilerStep")):
-            continue    # record_function ranges (Optimizer.step#AdamW.step) span kernels
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            by_kernel[ev.key] = (dev_us / 1e3, ev.count)
-    busy_ms = sum(ms for ms, _ in by_kernel.values())
-    if not by_kernel:
-        log("profile: torch.profiler recorded no device time (not measured)")
-        return None
-    classes = {}
-    for name, (ms, _) in by_kernel.items():
-        low = name.lower()
-        cls = next((c for c, keys in KERNEL_CLASSES if any(k in low for k in keys)), "other")
-        classes[cls] = classes.get(cls, 0.0) + ms
-    launches = sum(n for _, n in by_kernel.values())
-    log(f"profile: {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {launches} kernel launches")
-    log("profile: device ms by class: " + ", ".join(
-        f"{c} {ms:.2f}" for c, ms in sorted(classes.items(), key=lambda kv: -kv[1])))
-    for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"profile:   {ms:8.3f} ms  x{n:<5d} {name[:110]}")
-    return {"classes": classes, "busy_ms": busy_ms, "wall_ms": wall_ms,
-            "wattn_bwd_ms": device_ms_under(prof.events(), "WindowAttentionFunctionBackward")}
-
-
-def device_ms_under(events, name_part):
-    """Device ms of the kernels launched under the outermost CPU ranges
-    whose name contains ``name_part`` (autograd's backward node of an
-    autograd Function, whose nested backward runs inside it)."""
-    def nested(ev):
-        parent = ev.cpu_parent
-        while parent is not None:
-            if name_part in parent.name:
-                return True
-            parent = parent.cpu_parent
-        return False
-
-    us = 0.0
-    for ev in events:
-        if name_part in ev.name and not nested(ev):
-            total = getattr(ev, "device_time_total", None)
-            us += total if total is not None else getattr(ev, "cuda_time_total", 0)
-    return us / 1e3
-
-
 # --------------------------------------------------------------------- a2d --
 def a2d_path(results, name, cfg, k7):
     """One A2D eval forward of ``cfg`` at full width on a 1 x 5 x 384 x 640
@@ -1407,6 +1234,25 @@ def phase_resume(results):
 # YTVOS size, one expression, full masks (the card has no h5py, so no
 # Ref-YTVOS heatmaps; PERF.md section 4)
 CLI_FRAMES, CLI_H, CLI_W = 8, 720, 1280
+
+
+def palette_png(indices: np.ndarray) -> bytes:
+    """A palette PNG of (H, W) uint8 indices (index i colored (i, i, i)),
+    written with the standard library."""
+    import struct
+    import zlib
+
+    h, w = indices.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), indices], 1)   # filter 0
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+            + chunk(b"PLTE", np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes())
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
 def write_davis_tree(root, split="train", frames=CLI_FRAMES, objects=1):
@@ -2038,38 +1884,12 @@ def timed_calls(module, names, secs):
             setattr(module, n, fn)
 
 
-# JHMDB's native frame size; videos and frames of the phase's tree
-JHMDB_H, JHMDB_W, JHMDB_VIDEOS, JHMDB_FRAMES = 240, 320, 7, 12
+# videos and frames of the phase's JHMDB tree (240 x 320 PNG frames)
+JHMDB_VIDEOS, JHMDB_FRAMES = 7, 12
 
 
 def write_jhmdb_tree(root):
-    """A JHMDB-Sentences tree: PNG frames (PIL) of a moving ellipse and its
-    ``puppet_mask.mat`` (scipy.io.savemat), one sentence per video."""
-    import scipy.io
-    from PIL import Image
-
-    rng = np.random.default_rng(11)
-    yy, xx = np.mgrid[0:JHMDB_H, 0:JHMDB_W]
-    lines = ["video_id,query"]
-    for v in range(JHMDB_VIDEOS):
-        vid = f"vid{v}"
-        frames_dir = os.path.join(root, "Rename_Images", "catch", vid)
-        masks_dir = os.path.join(root, "puppet_mask", "catch", vid)
-        os.makedirs(frames_dir)
-        os.makedirs(masks_dir)
-        puppet = np.zeros((JHMDB_H, JHMDB_W, JHMDB_FRAMES), np.uint8)
-        for k in range(JHMDB_FRAMES):
-            obj = (((yy - 100 - 3 * k - 5 * v) / 60.0) ** 2
-                   + ((xx - 90 - 8 * k - 10 * v) / 40.0) ** 2) <= 1.0
-            img = 60 + 120 * rng.random((JHMDB_H, JHMDB_W, 3))
-            img[obj] = 0.4 * img[obj] + [140, 90, 30]
-            Image.fromarray(img.astype(np.uint8)).save(
-                os.path.join(frames_dir, f"{k + 1:05d}.png"))
-            puppet[..., k] = obj
-        scipy.io.savemat(os.path.join(masks_dir, "puppet_mask.mat"), {"part_mask": puppet})
-        lines.append(f"{vid},a person {('catching', 'throwing')[v % 2]} a ball")
-    with open(os.path.join(root, "jhmdb_annotation.txt"), "w") as f:
-        f.write("\n".join(lines) + "\n")
+    build_jhmdb_tree(root, JHMDB_VIDEOS, JHMDB_FRAMES)
 
 
 A2D_KEYS = ("mAP 0.5:0.95", "AP50", "AP75", "overall_iou", "mean_iou",
@@ -3204,6 +3024,178 @@ def phase_msda_bench(results):
     log(f"msda_bench: {bench_msda_kernel.__name__} {' '.join(argv)}: launches {counts}")
 
 
+
+# ------------------------------------------------------------------- bench --
+# bench.py's stages at shortened paired runs: (long, short, repeats) for the
+# forward stages (32, 4, 5 run alone) and the train stages (16, 2, 3)
+BENCH_EVAL_ITERS, BENCH_TRAIN_ITERS = (8, 2, 3), (4, 1, 3)
+BENCH_STAGES = ("headline", "swin_b", "train_bs1", "train_bs2")
+# the JAX bench's HLO count of the same R101 forward (bench.py:222)
+JAX_R101_FORWARD_GFLOP = 477.5
+
+
+def mfu_ok(x) -> bool:
+    return math.isfinite(x) and 0.0 < x <= 1.05
+
+
+def phase_bench(results):
+    """``ocpg_tpu_torch.scripts.bench`` (``run``) in this process at its
+    defaults, the paired runs shortened: every stage present and none
+    failed, exit code 0, the four rates above 0, every MFU in (0, 1.05],
+    every kernel GFLOP above 0; per stage (the counters reset before each)
+    K1 8 per forward and per step, K2 8 per step, K7 24 per Swin-B forward,
+    nothing else.  The record is printed on a line of its own."""
+    from ocpg_tpu_torch.scripts import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    rec, rc = bench.run(eval_iters=BENCH_EVAL_ITERS, train_iters=BENCH_TRAIN_ITERS)
+    log("bench record: " + json.dumps(rec))
+    check(rc == 0 and rec["skipped"] == [] and tuple(rec["stage_wall_s"]) == BENCH_STAGES,
+          f"bench: exit code {rc}, skipped {rec['skipped']}, stages {list(rec['stage_wall_s'])}")
+    rates = ("value", "swin_b_fps", "train_frames_per_sec_per_chip",
+             "train_b2_frames_per_sec_per_chip")
+    check(all(rec[k] > 0 for k in rates), f"bench rates {[rec[k] for k in rates]}")
+    mfus = {k: v for k, v in rec.items() if "_mfu_" in k}
+    check(len(mfus) == 8 and all(mfu_ok(v) for v in mfus.values()), f"bench MFUs {mfus}")
+    kernel_gflop = {k: v for k, v in rec.items() if "_gflop_" in k and k.endswith("_kernels")}
+    check(len(kernel_gflop) == 4 and all(v > 0 for v in kernel_gflop.values()),
+          f"bench kernel GFLOP {kernel_gflop}")
+    check(rec["nvidia_smi"] == smi and not rec["peak_is_fallback_guess"],
+          f"bench card {rec['nvidia_smi']}, peak guessed {rec['peak_is_fallback_guess']}")
+    want = {"headline": lambda n: counts_of(K1=8 * n),
+            "swin_b": lambda n: counts_of(K1=8 * n, K7=SWIN_B_BLOCKS * n),
+            "train_bs1": lambda n: counts_of(K1=8 * n, K2=8 * n),
+            "train_bs2": lambda n: counts_of(K1=8 * n, K2=8 * n)}
+    for stage in BENCH_STAGES:
+        calls, counts = rec["calls"][stage], rec["launches"][stage]
+        check(counts == want[stage](calls),
+              f"bench {stage}: {calls} forwards or steps launched {counts}")
+        results["paths"][f"bench_{stage}"] = counts
+    dense = rec["model_gflop_per_clip_dense"]
+    log(f"bench: {rec['value']} clip frames/s (R101), {rec['swin_b_fps']} (Swin-B); train "
+        f"{rec['train_step_ms']} ms/step (B=1), {rec['train_b2_step_ms']} (B=2); MFU dense / "
+        f"incl kernels: R101 {rec['model_mfu_dense']} / {rec['model_mfu_incl_custom_calls']}, "
+        f"Swin-B {rec['swin_b_model_mfu_dense']} / "
+        f"{rec['swin_b_model_mfu_incl_custom_calls']}, train {rec['train_mfu_dense']} / "
+        f"{rec['train_mfu_incl_custom_calls']}, B=2 {rec['train_b2_mfu_dense']} / "
+        f"{rec['train_b2_mfu_incl_custom_calls']}; R101 forward {dense} GFLOP dense + "
+        f"{rec['model_gflop_per_clip_kernels']} kernels against the JAX bench's HLO count of "
+        f"{JAX_R101_FORWARD_GFLOP} ({dense / JAX_R101_FORWARD_GFLOP:.3f} of it); stage walls "
+        f"{rec['stage_wall_s']} [{smi}]")
+    results["bench"] = rec
+
+
+def run_script(results, path, fn):
+    """``fn()`` with the launch counters reset before and read after, the
+    counts kept as path ``path``; returns (fn's result, the counts)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    results["paths"][path] = counts
+    return out, counts
+
+
+def phase_bench_scripts(results):
+    """Each measurement driver of ``ocpg_tpu_torch/scripts`` in this
+    process at its shortest, as a user runs it (``main(argv)``), its
+    record printed on a line of its own: bench_train (timing with --trace,
+    then --e2e on a Ref-DAVIS tree), bench_serving (one round of 2
+    requests), bench_eval_e2e (--dataset jhmdb, 3 videos), bench_loader
+    (--dataset davis, --step_ms from phase bench), bench_swin_micro,
+    bench_train_sweep (one R101 point in a child process) and
+    profile_bench.  Each run's kernel launches are a path of their own:
+    K1 and K2 8 per train step, K1 8 per forward, K7 24 per Swin-B
+    forward and once per window-attention part."""
+    from ocpg_tpu_torch.scripts import (bench_eval_e2e, bench_loader, bench_serving,
+                                        bench_swin_micro, bench_train, bench_train_sweep,
+                                        profile_bench)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    root = tempfile.mkdtemp(prefix="bench_scripts_", dir=_build.BUILD_DIR)
+    try:
+        def out(name):
+            return os.path.join(root, name)
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            rec, counts = run_script(results, name, fn)
+            log(f"{name} record ({time.perf_counter() - t0:.1f} s): " + json.dumps(rec))
+            return rec, counts
+
+        rec, counts = timed("bench_train", lambda: bench_train.main(
+            ["--iters", "2", "--iters_short", "1", "--repeats", "1", "--trace",
+             "--out", out("train.json")]))
+        check(counts == counts_of(K1=8 * rec["steps"], K2=8 * rec["steps"])
+              and rec["launches"] == counts and rec["step_ms"] > 0
+              and mfu_ok(rec["train_mfu_dense"]) and mfu_ok(rec["train_mfu_incl_custom_calls"])
+              and rec["gflop_per_step_kernels"] > 0 and rec["profile_device_ms_by_class"]
+              and rec["nvidia_smi"] == smi, f"bench_train: launches {counts}, record {rec}")
+        rec, counts = timed("bench_train_e2e", lambda: bench_train.main(
+            ["--e2e", "4", "--dataset", "davis", "--e2e_videos", "2",
+             "--e2e_frames_per_video", "6", "--e2e_workers", "2", "--out", out("e2e.json")]))
+        steps = 4 + 4 + 1 + 4
+        check(counts == counts_of(K1=8 * steps, K2=8 * steps) and rec["e2e_train_step_ms"] > 0
+              and rec["resident_step_ms"] > 0 and math.isfinite(rec["last_loss"]),
+              f"bench_train --e2e: {steps} steps launched {counts}, record {rec}")
+
+        rec, counts = timed("bench_serving", lambda: bench_serving.main(
+            ["--reqs", "2", "--rounds", "1", "--out", out("serving.json")]))
+        dispatches = 4 * 2 * 2
+        times = [v for k, v in rec.items() if k.endswith("_ms_per_request")]
+        check(counts == counts_of(K1=8 * dispatches) and len(times) == 4
+              and all(t > 0 for t in times), f"bench_serving: launches {counts}, record {rec}")
+
+        rec, counts = timed("bench_eval_e2e", lambda: bench_eval_e2e.main(
+            ["--dataset", "jhmdb", "--videos", "3", "--frames", "6", "--resident_iters", "3",
+             "--out", out("eval.json")]))
+        check(counts["K1"] > 0 and counts["K1"] % 8 == 0
+              and counts == counts_of(K1=counts["K1"]) and rec["metrics_finite"]
+              and rec["metrics_host_vs_device_max_abs_delta"] <= 1e-6
+              and all(rec[k] > 0 for k in rec if k.startswith("e2e_eval_ms")),
+              f"bench_eval_e2e: launches {counts}, record {rec}")
+
+        rec, counts = timed("bench_loader", lambda: bench_loader.main(
+            ["--dataset", "davis", "--videos", "2", "--frames-per-video", "6", "--batches", "4",
+             "--workers", "1", "2", "--step_ms", str(results["bench"]["train_step_ms"]),
+             "--out", out("loader.json")]))
+        check(counts == counts_of() and rec["value"] > 0 and "feeds_one_gpu" in rec,
+              f"bench_loader: launches {counts}, record {rec}")
+
+        rec, counts = timed("bench_swin_micro", lambda: bench_swin_micro.main(
+            ["--iters", "5", "--out", out("swin_micro.json")]))
+        k7_parts = [k for k in rec["parts"] if k.endswith("K7 kernel")]
+        check(len(k7_parts) == 4 and counts["K7"] > 0 and counts == counts_of(K7=counts["K7"])
+              and all(v["ms"] > 0 for v in rec["parts"].values()),
+              f"bench_swin_micro: launches {counts}, parts {sorted(rec['parts'])}")
+
+        rec, counts = timed("bench_train_sweep", lambda: bench_train_sweep.main(
+            ["--backbones", "resnet101", "--batches", "1", "--frames", "3", "--iters", "2",
+             "--iters_short", "1", "--repeats", "1", "--out", out("sweep.json")]))
+        (point,) = rec["points"]
+        check(point["status"] == "ok" and point["step_ms"] > 0
+              and mfu_ok(point["train_mfu_incl_custom_calls"])
+              and point["launches"] == counts_of(K1=8 * point["steps"], K2=8 * point["steps"]),
+              f"bench_train_sweep point {point}")
+        # the child's launches: this process launched nothing for the sweep
+        check(counts == counts_of(), f"bench_train_sweep launched {counts} in this process")
+        results["paths"]["bench_train_sweep"] = point["launches"]
+
+        rec, counts = timed("profile_bench", lambda: profile_bench.main(
+            ["--iters", "2", "--out", out("profile.md")]))
+        # profile_bench resets the counters after its warm-up: 2 profiled forwards
+        check(counts == rec["launches"] == counts_of(K1=8 * 2)
+              and rec["profile"]["busy_ms"] > 0 and rec["profile"]["classes"].get("msda", 0) > 0,
+              f"profile_bench: launches {counts}, record {rec}")
+        log(f"bench_scripts: every measurement script ran [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -3232,7 +3224,8 @@ def main() -> int:
                      ("pseudo_labels", phase_pseudo_labels), ("demo_e2e", phase_demo_e2e),
                      ("long_run", phase_long_run), ("memory_envelope", phase_memory_envelope),
                      ("std_op", phase_std_op),
-                     ("msda_bench", phase_msda_bench)):
+                     ("msda_bench", phase_msda_bench), ("bench", phase_bench),
+                     ("bench_scripts", phase_bench_scripts)):
         t0 = time.perf_counter()
         fn(results)
         log(f"phase {name} ok in {time.perf_counter() - t0:.1f} s")

@@ -31,6 +31,14 @@ and ``::ms_deform_attn_fast`` and their custom VJPs.
 * ``launches`` and ``bwd_launches`` count the CM kernels' launches,
   ``std_launches`` and ``std_bwd_launches`` the standard-layout ones, and
   nothing else.
+* Work accounting (the bench's MFU and the card checks' bounds):
+  ``msda_work`` and ``msda_bwd_work`` give the bytes and FLOPs one call
+  needs on given inputs (the FLOPs of the corners that fall in the map);
+  ``msda_fwd_flops`` and ``msda_bwd_flops`` the FLOPs from the shapes
+  alone, every corner counted; ``count_msda_flops`` collects a
+  ``(direction, flops)`` entry for every forward and backward through
+  either dispatcher (and, from ``ops/window_attention.py``, for every
+  window-attention forward) while it is open.
 
 Shapes: value ``(N, S, M, D)`` with ``S = sum_l H_l * W_l``; x, y and aw
 ``(N, M, L, P, Lq)`` (normalised [0, 1] coordinates and attention weights);
@@ -42,8 +50,9 @@ version here.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -261,11 +270,15 @@ def ms_deform_attn_cm(value: torch.Tensor, spatial_shapes: Shapes,
                       aw_cm: torch.Tensor) -> torch.Tensor:
     """MSDA forward; CUDA tensors run the kernels, CPU tensors the plain version."""
     _check(value, spatial_shapes, x_cm, y_cm, aw_cm)
-    if value.is_cuda:
-        return _MSDAFunction.apply(value, x_cm, y_cm, aw_cm, tuple(spatial_shapes))
-    if value.device.type == "cpu":
-        return ms_deform_attn_cm_reference(value, spatial_shapes, x_cm, y_cm, aw_cm)
-    raise ValueError(f"MSDA has no path for device {value.device}")
+    with dense_count_paused():
+        if value.is_cuda:
+            out = _MSDAFunction.apply(value, x_cm, y_cm, aw_cm, tuple(spatial_shapes))
+        elif value.device.type == "cpu":
+            out = ms_deform_attn_cm_reference(value, spatial_shapes, x_cm, y_cm, aw_cm)
+        else:
+            raise ValueError(f"MSDA has no path for device {value.device}")
+    n, _, m, d = value.shape
+    return _counted(out, spatial_shapes, n, m, d, *x_cm.shape[-2:])
 
 
 # ----------------------------------------------------------- standard layout --
@@ -433,8 +446,131 @@ def ms_deform_attn_fast(value: torch.Tensor, spatial_shapes: Shapes,
     """MSDA forward in the standard layout; CUDA tensors run the kernels
     (K3 forward, K4 backward), CPU tensors the plain version."""
     _check_std(value, spatial_shapes, locs, attn)
-    if value.is_cuda:
-        return _MSDAStdFunction.apply(value, locs, attn, tuple(spatial_shapes))
-    if value.device.type == "cpu":
-        return ms_deform_attn_reference(value, spatial_shapes, locs, attn)
-    raise ValueError(f"MSDA has no path for device {value.device}")
+    with dense_count_paused():
+        if value.is_cuda:
+            out = _MSDAStdFunction.apply(value, locs, attn, tuple(spatial_shapes))
+        elif value.device.type == "cpu":
+            out = ms_deform_attn_reference(value, spatial_shapes, locs, attn)
+        else:
+            raise ValueError(f"MSDA has no path for device {value.device}")
+    n, lq, m = locs.shape[:3]
+    return _counted(out, spatial_shapes, n, m, value.shape[3], locs.shape[4], lq)
+
+
+# -------------------------------------------------------- work accounting --
+def in_map_corners(shapes: Shapes, x: torch.Tensor, y: torch.Tensor) -> int:
+    """How many bilinear corners of the samples x, y ``(N, M, L, P, Lq)``
+    fall inside their level's map."""
+    corners = 0
+    for lid, (h, w) in enumerate(shapes):
+        xp = x[:, :, lid] * w - 0.5
+        yp = y[:, :, lid] * h - 0.5
+        x0, y0 = torch.floor(xp), torch.floor(yp)
+        for cx, cy in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
+            corners += int(((cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)).sum())
+    return corners
+
+
+def msda_work(shapes: Shapes, value, x, y, aw) -> Tuple[int, int]:
+    """(bytes, flops) the forward needs on these inputs: each input read
+    once, the output written once; per in-map corner one weight product and
+    a multiply-add per channel, per sample 12 for its coordinates and
+    corner weights."""
+    n, s, m, d = value.shape
+    nbytes = (value.numel() * value.element_size() + 3 * x.numel() * 4
+              + n * x.shape[-1] * m * d * value.element_size())
+    return nbytes, in_map_corners(shapes, x, y) * (2 * d + 2) + x.numel() * 12
+
+
+def msda_bwd_work(shapes: Shapes, value, x, y, aw) -> Tuple[int, int]:
+    """(bytes, flops) the backward needs on these inputs: value, g, x, y and
+    aw read once, d_value, d_x, d_y and d_aw written once; per in-map corner
+    and channel the multiply-add of t_c = sum_d g * v_c and the product
+    (aw * w_c) * g added into d_value; per sample the coordinates, the four
+    weights and their products with aw, and d_aw, d_x, d_y as sums over
+    the four t_c."""
+    n, s, m, d = value.shape
+    gbytes = n * x.shape[-1] * m * d * value.element_size()
+    nbytes = 2 * value.numel() * value.element_size() + gbytes + 6 * x.numel() * 4
+    return nbytes, in_map_corners(shapes, x, y) * 4 * d + x.numel() * 40
+
+
+def msda_fwd_flops(spatial_shapes: Shapes, n: int, m: int, d: int, p: int, lq: int) -> float:
+    """FLOPs of one MSDA forward from its shapes alone: ``msda_work``'s
+    count with all four corners of every sample in the map, so an upper
+    bound of what the data needs (reading the in-map share would cost a
+    host sync).
+
+    This counts the function's work, which any implementation must do; the
+    JAX package's ``msda_pallas_fwd_flops`` counts what its Pallas kernel
+    executes instead (dense hat-row matmuls over padded query tiles,
+    structural zeros included), so it reads far higher and moves with the
+    kernel's design.  Here a kernel rewrite does not move the count."""
+    samples = n * m * len(spatial_shapes) * p * lq
+    return float(samples * (4 * (2 * d + 2) + 12))
+
+
+def msda_bwd_flops(spatial_shapes: Shapes, n: int, m: int, d: int, p: int, lq: int) -> float:
+    """FLOPs of one MSDA backward from its shapes alone: ``msda_bwd_work``'s
+    count with every corner in the map (see ``msda_fwd_flops`` for how it
+    differs from the JAX package's ``msda_pallas_bwd_flops``)."""
+    samples = n * m * len(spatial_shapes) * p * lq
+    return float(samples * (4 * 4 * d + 40))
+
+
+_MSDA_FLOPS: Optional[List[Tuple[str, float]]] = None
+
+
+@contextlib.contextmanager
+def count_msda_flops() -> Iterator[List[Tuple[str, float]]]:
+    """Collect a ``(direction, flops)`` entry for every MSDA call while the
+    context is open: ``("fwd", msda_fwd_flops(...))`` per forward through
+    ``ms_deform_attn_cm`` or ``ms_deform_attn_fast`` and ``("bwd",
+    msda_bwd_flops(...))`` per backward through one of their outputs
+    (K1/K3 and K2/K4 on CUDA tensors, the plain versions on CPU tensors),
+    and ``("wattn_fwd", ...)`` per window-attention forward
+    (``ops/window_attention.py``).  Yields the list; sum the second
+    elements.  The entries exist because the kernels are called through
+    ctypes, where ``torch.utils.flop_counter.FlopCounterMode`` cannot see
+    them; while a count is open the dispatchers also hide their forward
+    from that mode on every device (``dense_count_paused``), so a dense
+    count taken beside this one never holds their work twice."""
+    global _MSDA_FLOPS
+    prev, _MSDA_FLOPS = _MSDA_FLOPS, []
+    try:
+        yield _MSDA_FLOPS
+    finally:
+        _MSDA_FLOPS = prev
+
+
+def _record_msda_flops(direction: str, flops: float) -> None:
+    if _MSDA_FLOPS is not None:
+        _MSDA_FLOPS.append((direction, flops))
+
+
+@contextlib.contextmanager
+def dense_count_paused() -> Iterator[None]:
+    """While a ``count_msda_flops`` context is open, run the enclosed code
+    with the Python dispatch modes (``FlopCounterMode``) set aside: a
+    dispatcher's forward is counted by its analytic entry alone, on the CPU
+    (where the plain version's matmuls would be visible) as on the card
+    (where the kernel is not).  A no-op otherwise."""
+    if _MSDA_FLOPS is None:
+        yield
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        yield
+
+
+def _counted(out: torch.Tensor, spatial_shapes: Shapes, n: int, m: int, d: int,
+             p: int, lq: int) -> torch.Tensor:
+    """Record ``out``'s forward entry and, if a backward runs through it,
+    its backward entry (a gradient hook on ``out``)."""
+    if _MSDA_FLOPS is not None:
+        _record_msda_flops("fwd", msda_fwd_flops(spatial_shapes, n, m, d, p, lq))
+        if out.requires_grad:
+            bwd = msda_bwd_flops(spatial_shapes, n, m, d, p, lq)
+            out.register_hook(lambda g: _record_msda_flops("bwd", bwd))
+    return out

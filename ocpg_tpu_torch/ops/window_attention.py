@@ -15,6 +15,14 @@ Counterpart of ``ocpg_tpu/ops/window_attention_pallas.py``.
   softmax in float32, then ``@ v`` with float32 sums.
 * ``window_attention_grad_reference`` is the backward rule alone.
 * ``launches`` counts the kernel's launches, and nothing else.
+* ``wattn_work`` gives one call's bytes and FLOPs (the card checks'
+  bound), ``wattn_fwd_flops`` its FLOPs from the shapes; every forward
+  through the dispatcher adds ``("wattn_fwd", wattn_fwd_flops(...))`` to an
+  open ``ms_deform_attn.count_msda_flops`` context and hides its own work
+  from ``FlopCounterMode`` (``dense_count_paused``).  The backward is plain
+  PyTorch on every device, which that mode counts: on the card it
+  recomputes the forward's two products, so there a step's dense count
+  holds four products per call where the CPU's autograd holds two.
 
 Shapes: q (pre-scaled by ``dh ** -0.5``), k, v ``(bw, n, heads, dh)``;
 bias ``(heads, n, n)``; mask ``(nW, n, n)`` or None, applied to window
@@ -37,6 +45,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from .ms_deform_attn import _record_msda_flops, dense_count_paused
 
 SOURCE = "window_attention_fwd.cu"
 MAX_N = 392             # WATTN_MAX_N in csrc/window_attention_fwd.cu
@@ -162,11 +171,36 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Window attention; CUDA tensors run the kernel, CPU tensors the plain version."""
     _check(q, k, v, bias, mask)
-    if q.is_cuda:
-        # bias and mask in q's type, as the plain version adds them
-        return _WindowAttentionFunction.apply(
-            q, k, v, bias.to(q.dtype).contiguous(),
-            None if mask is None else mask.to(q.dtype).contiguous())
-    if q.device.type == "cpu":
-        return window_attention_reference(q, k, v, bias, mask)
-    raise ValueError(f"window attention has no path for device {q.device}")
+    with dense_count_paused():
+        if q.is_cuda:
+            # bias and mask in q's type, as the plain version adds them
+            out = _WindowAttentionFunction.apply(
+                q, k, v, bias.to(q.dtype).contiguous(),
+                None if mask is None else mask.to(q.dtype).contiguous())
+        elif q.device.type == "cpu":
+            out = window_attention_reference(q, k, v, bias, mask)
+        else:
+            raise ValueError(f"window attention has no path for device {q.device}")
+    _record_msda_flops("wattn_fwd", wattn_fwd_flops(*q.shape))
+    return out
+
+
+def wattn_fwd_flops(bw: int, n: int, heads: int, dh: int) -> float:
+    """FLOPs of one forward from its shapes: the two products q.k^T and
+    P.v, 2 flops per multiply-add (softmax, bias and mask not counted)."""
+    return float(4 * bw * heads * n * n * dh)
+
+
+def wattn_work(q: torch.Tensor, mask: Optional[torch.Tensor]):
+    """(bytes, flops, L2 bytes) of one call: q, k, v, bias and the mask
+    read once in the input's type, the output written once; the two
+    products (``wattn_fwd_flops``); and the bytes of bias and mask that the
+    kernel reads from L2 (every (window, head) reads its n x n of each: the
+    bias once per window, the mask once per head)."""
+    bw, n, h, dh = q.shape
+    es = q.element_size()
+    nbytes = 4 * q.numel() * es + h * n * n * es
+    if mask is not None:
+        nbytes += mask.numel() * es
+    l2_bytes = bw * h * n * n * es * (1 if mask is None else 2)
+    return nbytes, int(wattn_fwd_flops(bw, n, h, dh)), l2_bytes

@@ -29,10 +29,11 @@ expression each, the object a fixed box in the frame centre):
   first two are within 1e-3 relative (one backward's atomics in between,
   as in chip_smoke.py's phase resume).
 
+The tree is ``bench_loader.build_tree``'s, as in the JAX script:
 ``--dataset ytvos`` (the default) writes a Ref-YouTube-VOS tree with h5
 heatmaps (needs h5py); ``--dataset davis`` a Ref-DAVIS tree of the same
-size and frames with full palette-PNG masks (for hosts without h5py).  The
-record, written to ``--out``, says which ran.
+size, frames and masks without them (for hosts without h5py).  The record,
+written to ``--out``, says which ran.
 
 Usage:
     python -m ocpg_tpu_torch.scripts.train_long_run [--steps 2000] [--dataset davis]
@@ -48,7 +49,6 @@ import argparse
 import dataclasses
 import itertools
 import json
-import os
 import shutil
 import tempfile
 import time
@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..config import OCPGConfig, ytvos_r101_boxsup
+from .bench_loader import build_tree
 
 # the replayed steps held to REPLAY_RTOL of the live losses: the first two
 # (after more steps the card's run-to-run spread alone passes the bound)
@@ -85,71 +86,6 @@ class LongRunConfig:
     model: OCPGConfig = dataclasses.field(default_factory=default_model)
     canvas: Tuple[int, int] = (512, 640)
     frame_size: Tuple[int, int] = (720, 1280)
-
-
-# ----------------------------------------------------------------- trees --
-def palette_png(indices: np.ndarray) -> bytes:
-    """A palette PNG of (H, W) uint8 indices (index i colored (i, i, i)),
-    written with the standard library."""
-    import struct
-    import zlib
-
-    h, w = indices.shape
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), indices], 1)   # filter 0
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
-            + chunk(b"PLTE", np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes())
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
-
-
-def build_tree(root: str, videos: int, frames_per_video: int, h: int = 720, w: int = 1280,
-               dataset: str = "ytvos") -> None:
-    """The train split of a seeded tree: per video one noise frame repeated
-    as JPEGs, the object (index 1) a fixed box over the centre half, one
-    expression.  ``ytvos`` adds the AnnotationsWeakly h5 heatmaps (0.9 in
-    the box) of a Ref-YouTube-VOS tree; ``davis`` is a Ref-DAVIS tree."""
-    from PIL import Image
-
-    rng = np.random.default_rng(0)
-    meta = {"videos": {}}
-    for v in range(videos):
-        video = f"vid{v}"
-        os.makedirs(f"{root}/train/JPEGImages/{video}")
-        os.makedirs(f"{root}/train/Annotations/{video}")
-        frames = [f"{i:05d}" for i in range(frames_per_video)]
-        base = (rng.random((h, w, 3)) * 255).astype(np.uint8)
-        pal = np.zeros((h, w), np.uint8)
-        pal[h // 4: 3 * h // 4, w // 4: 3 * w // 4] = 1
-        png = palette_png(pal)
-        heat = np.zeros((1, h, w), np.float32)
-        heat[0, h // 4: 3 * h // 4, w // 4: 3 * w // 4] = 0.9
-        if dataset == "ytvos":
-            import h5py
-
-            os.makedirs(f"{root}/train/AnnotationsWeakly/{video}")
-        for name in frames:
-            Image.fromarray(base).save(f"{root}/train/JPEGImages/{video}/{name}.jpg",
-                                       quality=85)
-            with open(f"{root}/train/Annotations/{video}/{name}.png", "wb") as f:
-                f.write(png)
-            if dataset == "ytvos":
-                with h5py.File(f"{root}/train/AnnotationsWeakly/{video}/{name}.h5",
-                               "w") as f:
-                    f.create_dataset("obj_ids", data=np.asarray([1]))
-                    f.create_dataset("heatPoint", data=heat)
-                    f.create_dataset("heatBBox", data=heat)
-        meta["videos"][video] = {
-            "frames": frames,
-            "expressions": {"0": {"exp": "the big square", "obj_id": "1"}},
-        }
-    os.makedirs(f"{root}/meta_expressions/train")
-    with open(f"{root}/meta_expressions/train/meta_expressions.json", "w") as f:
-        json.dump(meta, f)
 
 
 # ------------------------------------------------------------------- val --

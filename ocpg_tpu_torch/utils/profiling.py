@@ -5,14 +5,29 @@ host and, on a GPU, the device) and writes a Chrome trace, viewable in
 Perfetto or ``chrome://tracing``; ``StepTimer`` splits wall time between
 waiting for data and the step; ``device_memory_stats`` reads the CUDA
 allocator's peak and in-use memory per device.
+
+The measurement helpers of ``chip_smoke.py`` and the bench drivers
+(``ocpg_tpu_torch/scripts/bench*.py``, ``profile_bench.py``), all on a GPU:
+
+* ``cuda_times(fn, iters)``: device ms per call (the calls queue behind a
+  sleep kernel, so CUDA events time the device, not the host's launch
+  rate) and the host's enqueue ms per call; ``cuda_ms`` the first alone.
+* ``profile_run(label, fn)``: ``fn()`` under ``torch.profiler``, device
+  ms by kernel class (``KERNEL_CLASSES``, ``kernel_class``) and by
+  kernel, and the device-busy share of the wall time.
+* ``device_ms_under(events, name)``: the device ms of the kernels launched
+  under the outermost CPU ranges so named.
+* ``LAUNCH_COUNTERS``, ``reset_launch_counts``, ``launch_counts``: the
+  launch counters of the port's kernels K1-K7.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import os
 import time
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 
 @contextlib.contextmanager
@@ -76,3 +91,152 @@ def device_memory_stats() -> Dict[str, Dict[str, float]]:
             "in_use_gib": round(torch.cuda.memory_allocated(i) / 2**30, 3),
         }
     return out
+
+
+# cycles per second of torch.cuda._sleep's spin (an SM clock at or above the
+# card's; a slower clock only lengthens the sleep)
+SLEEP_CYCLES_PER_S = 2.0e9
+
+
+def cuda_times(fn: Callable[[], object], iters: int, warmup: int = 3) -> Tuple[float, float]:
+    """(device ms, host ms) per call of fn() over iters calls.  The calls
+    queue up behind a sleep kernel that outlasts the host's enqueueing, so
+    the CUDA events around them time the device, not the rate at which the
+    host launches; the host's enqueue time per call is returned beside it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * once * iters + 1e-3, 2.0) * SLEEP_CYCLES_PER_S))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def cuda_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
+    """Mean device time of fn() over iters launches (cuda_times)."""
+    return cuda_times(fn, iters, warmup)[0]
+
+
+KERNEL_CLASSES = (   # (class, substrings of CUDA kernel names), first match wins
+    ("memcpy", ("memcpy",)),
+    ("wattn", ("wattn_fwd",)),
+    ("msda_cm_bwd", ("msda_bwd_kernel",)),
+    ("msda", ("msda_fwd_kernel", "msda_r4_kernel", "msda_fk_kernel")),
+    ("fft", ("fft",)),
+    ("conv", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn")),
+    ("gemm", ("gemm", "cutlass", "matmul", "sm90_xmma", "nvjet")),
+    ("optimizer", ("multi_tensor", "foreach", "adam")),
+    ("norm", ("norm",)),
+    ("softmax", ("softmax",)),
+    ("resize", ("upsample", "interp", "grid_sampler")),
+    ("gather/scatter", ("gather", "scatter", "index")),
+    ("copy/cast", ("copy", "cat", "transpose", "permute", "fill")),
+    ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "unrolled")),
+)
+
+
+def kernel_class(name: str) -> str:
+    """The ``KERNEL_CLASSES`` class of a CUDA kernel name ("other" if none)."""
+    low = name.lower()
+    return next((c for c, keys in KERNEL_CLASSES if any(k in low for k in keys)), "other")
+
+
+def profile_run(label: str, fn: Callable[[], object]) -> Optional[Dict]:
+    """fn() under torch.profiler: device busy share and device time by
+    kernel class and by kernel, printed.  Returns {"classes": device ms by
+    class, "busy_ms": their sum, "wall_ms", "kernels": {name: (device ms,
+    launches)}, "wattn_bwd_ms": the device ms of the kernels launched under
+    K7's Function backward (its plain recompute)}, or None when the
+    profiler recorded no device time (a CPU run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.key.startswith(("Optimizer.", "ProfilerStep")):
+            continue    # record_function ranges (Optimizer.step#AdamW.step) span kernels
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            by_kernel[ev.key] = (dev_us / 1e3, ev.count)
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    if not by_kernel:
+        print("profile: torch.profiler recorded no device time (not measured)", flush=True)
+        return None
+    classes: Dict[str, float] = {}
+    for name, (ms, _) in by_kernel.items():
+        cls = kernel_class(name)
+        classes[cls] = classes.get(cls, 0.0) + ms
+    launches = sum(n for _, n in by_kernel.values())
+    print(f"profile: {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches} kernel launches", flush=True)
+    print("profile: device ms by class: " + ", ".join(
+        f"{c} {ms:.2f}" for c, ms in sorted(classes.items(), key=lambda kv: -kv[1])),
+        flush=True)
+    for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"profile:   {ms:8.3f} ms  x{n:<5d} {name[:110]}", flush=True)
+    return {"classes": classes, "busy_ms": busy_ms, "wall_ms": wall_ms, "kernels": by_kernel,
+            "wattn_bwd_ms": device_ms_under(prof.events(), "WindowAttentionFunctionBackward")}
+
+
+def device_ms_under(events, name_part: str) -> float:
+    """Device ms of the kernels launched under the outermost CPU ranges
+    whose name contains ``name_part`` (autograd's backward node of an
+    autograd Function, whose nested backward runs inside it)."""
+    def nested(ev):
+        parent = ev.cpu_parent
+        while parent is not None:
+            if name_part in parent.name:
+                return True
+            parent = parent.cpu_parent
+        return False
+
+    us = 0.0
+    for ev in events:
+        if name_part in ev.name and not nested(ev):
+            total = getattr(ev, "device_time_total", None)
+            us += total if total is not None else getattr(ev, "cuda_time_total", 0)
+    return us / 1e3
+
+
+# launch counters of the port's kernels: (name, module, attribute)
+LAUNCH_COUNTERS = (("K1", "ocpg_tpu_torch.ops.ms_deform_attn", "launches"),
+                   ("K2", "ocpg_tpu_torch.ops.ms_deform_attn", "bwd_launches"),
+                   ("K3", "ocpg_tpu_torch.ops.ms_deform_attn", "std_launches"),
+                   ("K4", "ocpg_tpu_torch.ops.ms_deform_attn", "std_bwd_launches"),
+                   ("K5", "ocpg_tpu_torch.ops.ms_deform_attn_variants", "r4_launches"),
+                   ("K6", "ocpg_tpu_torch.ops.ms_deform_attn_variants", "fk_launches"),
+                   ("K7", "ocpg_tpu_torch.ops.window_attention", "launches"))
+
+
+def reset_launch_counts() -> None:
+    for _, module, attr in LAUNCH_COUNTERS:
+        setattr(importlib.import_module(module), attr, 0)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: getattr(importlib.import_module(module), attr)
+            for name, module, attr in LAUNCH_COUNTERS}

@@ -1,8 +1,9 @@
 """The PyTorch port and chip_smoke.py import nothing of JAX: the GPU machine
 has no JAX, and the port keeps its own copies of what it needs from
 ocpg_tpu.  The data path, the CLIs and tools, the eval engine, the
-metrics, the pseudo-label generator, the whole-system scripts and the
-utilities import cv2, PIL and h5py only in the calls that need them (and
+metrics, the pseudo-label generator, the whole-system scripts, the
+measurement drivers and the utilities import cv2, PIL and h5py only in
+the calls that need them (and
 transformers only where a tokenizer directory is loaded), so importing
 them loads none of them (the inference CLIs run without cv2 unless
 ``--visualize``: tests/test_torch_infer_cli.py).  Each
@@ -49,9 +50,14 @@ def test_port_has_the_slice_modules():
                  "preprocess.sim_model", "preprocess.dense_crf", "preprocess.generate_anno",
                  "parallel", "parallel.distributed", "parallel.dryrun",
                  "scripts.demo_synthetic_e2e", "scripts.train_long_run",
-                 "scripts.memory_envelope"):
+                 "scripts.memory_envelope", *MEASUREMENT):
         assert f"ocpg_tpu_torch.{name}" in mods, name
 
+
+# the measurement drivers and the profiling helpers
+MEASUREMENT = ("scripts.bench", "scripts.bench_train", "scripts.bench_serving",
+               "scripts.bench_eval_e2e", "scripts.bench_loader", "scripts.bench_swin_micro",
+               "scripts.bench_train_sweep", "scripts.profile_bench", "utils.profiling")
 
 # modules of the data path, the CLIs and tools, the eval engine, the
 # metrics, the pseudo-label generator, the scripts and the utilities
@@ -66,7 +72,7 @@ DATA_PATH = ["ocpg_tpu_torch." + m for m in (
     "cli.eval_davis", "cli.pretrain", "cli.infer_davis", "cli.infer_ytvos",
     "utils.torch_weights", "utils.hw", "cli.tools", "preprocess.sim_model",
     "preprocess.dense_crf", "preprocess.generate_anno", "scripts.demo_synthetic_e2e",
-    "scripts.train_long_run", "scripts.memory_envelope")]
+    "scripts.train_long_run", "scripts.memory_envelope", *MEASUREMENT)]
 NO_JAX = ("jax", "jaxlib", "flax", "optax", "transformers", "ocpg_tpu")
 
 
