@@ -93,18 +93,24 @@ exit, no result line) if it goes wrong:
                  restore into a fresh model, optimizer and step: state dicts
                  and generator state bit-identical to the saved ones, the
                  next step's losses within 1e-3 relative on both sides.
-11. train_cli -- the port's train CLI (``ocpg_tpu_torch.cli.train``) in this
-                 process, as a user runs it: the full-width ytvos_r101_boxsup
-                 model (ResNet-101, bf16, canvas 512 x 640, B=1, T=3) on a
-                 seeded Ref-DAVIS tree of 8 frames at 720 x 1280 (JPEG frames
-                 written with PIL, palette-PNG masks written with zlib), one
-                 epoch, then --resume for a second: K1 and K2 8 times per
-                 step over every step of both runs, K3-K7 never, no cv2
-                 loaded, every logged loss finite, log.txt with epochs 0 and
-                 1, the latest checkpoint at 2 x 8 steps, the frozen ResNet
-                 stem and text encoder bit-identical to their init; steps/s,
-                 the data-wait share, the loader's batches/s alone, one
-                 compact batch's pinned copy (device ms), peak memory.
+11. train_cli -- the port's train CLI (``ocpg_tpu_torch.cli.train
+                 --dataset_file ytvos``) in this process, as a user runs it:
+                 the full-width ytvos_r101_boxsup model (ResNet-101, bf16,
+                 canvas 512 x 640, B=1, T=3) on a seeded Ref-YouTube-VOS tree
+                 of 8 frames at 720 x 1280 (``bench_loader.build_tree``: JPEG
+                 frames and palette-PNG masks written with PIL, the
+                 AnnotationsWeakly h5 heat maps with ``data/h5.py``), one
+                 epoch, then --resume for a second: the first batch's heat
+                 maps and weak masks nonzero inside the object, K1 and K2 8
+                 times per step over every step of both runs, K3-K7 never, no
+                 cv2 and no h5py loaded, every logged loss finite, log.txt
+                 with epochs 0 and 1, the latest checkpoint at 2 x 8 steps,
+                 the frozen ResNet stem and text encoder bit-identical to
+                 their init; steps/s, the data-wait share, the loader's
+                 batches/s alone, one compact batch's pinned copy (device
+                 ms), peak memory; ms per ``read_datasets`` of one frame's
+                 720 x 1280 heatPoint with 1 and 3 instances beside the PIL
+                 decode of its JPEG.
 12. multi_gpu -- data parallelism (``ocpg_tpu_torch/parallel``) on the one
                  card: (a) an NCCL process group of world size 1 in this
                  process, the full-width ytvos_r101_boxsup train step (B=1,
@@ -132,17 +138,21 @@ exit, no result line) if it goes wrong:
                  ranks for 2 steps of a global batch of 2 on a 4-frame
                  Ref-DAVIS tree: K1 and K2 8 a step on each rank, only rank
                  0 writes log.txt (with the global batch) and checkpoints.
-13. eval_cli  -- the port's A2D/JHMDB eval CLI (``ocpg_tpu_torch.cli.evaluate
-                 --dataset_file jhmdb``) in this process at full width (R101,
-                 bf16) with its defaults (device postprocess, f32 wire) on a
-                 seeded JHMDB tree (7 videos of PNG frames at 240 x 320, a
-                 scipy.io ``puppet_mask.mat`` each), batches of 2 with a
-                 padded tail, then again with ``--postprocess host``: K1 8
-                 per forward and nothing else, the A2D metric keys finite in
-                 [0, 1], the two dicts within 1e-6; clips/s, the host seconds
-                 in RLE encoding and in the metrics, one forward with its
-                 device postprocess (device ms) and the packed mask wire
-                 beside the float32 canvas.
+13. eval_cli  -- the port's A2D/JHMDB eval CLI (``ocpg_tpu_torch.cli.evaluate``)
+                 in this process at full width (R101, bf16) with its
+                 defaults (device postprocess, f32 wire), batches of 2 with a
+                 padded tail: on a seeded A2D-Sentences tree
+                 (``bench_eval_e2e.build_a2d_tree``: 7 mp4 clips of 8 frames
+                 at 320 x 568 written with cv2, the annotated frame's h5
+                 written with ``data/h5.py``; ``--dataset_file a2d``), then on
+                 a seeded JHMDB tree (7 videos of PNG frames at 240 x 320, a
+                 scipy.io ``puppet_mask.mat`` each) and again with
+                 ``--postprocess host``: K1 8 per forward and nothing else,
+                 the A2D metric keys finite in [0, 1], the two JHMDB dicts
+                 within 1e-6; clips/s, the host seconds in RLE encoding and
+                 in the metrics, one forward with its device postprocess
+                 (device ms) and the packed mask wire beside the float32
+                 canvas.
 14. pretrain_cli -- the RefCOCO pretrain CLI (``cli.pretrain``) at full width,
                  T = 1, batches of 2, one epoch of a seeded COCO tree (8 train
                  and 4 val JPEGs at 480 x 640) with its val: K1 and K2 8 per
@@ -192,15 +202,25 @@ exit, no result line) if it goes wrong:
                  instances (one empty), without and with the CRF: centres
                  equal, heat maps within 1e-3, each bbox query choice the
                  CPU's or a tie within 1e-5; seconds per frame and the sim
-                 model's device ms.
+                 model's device ms.  Then OCPG's own data path:
+                 ``generate_anno.main --dataset ytvos --densecl`` on a
+                 2-video tree at 720 x 1280 writes AnnotationsWeakly/*.h5,
+                 read back equal bit for bit to ``generate_for_frame`` on
+                 those frames; ``cli.train`` takes 2 full-width steps (R101,
+                 bf16) on that tree (K1 and K2 8 per step, finite losses);
+                 ``--dataset a2d`` on a one-video A2D tree (mp4 by cv2)
+                 rewrites its annotation h5 in place, ``instance`` and
+                 ``reMask`` bit-identical, the three maps added and equal to
+                 ``generate_for_frame``'s; seconds per frame of each run.
 19. demo_e2e  -- the whole product (``ocpg_tpu_torch.scripts.
                  demo_synthetic_e2e``) at a shortened length: random-weight
                  ``cli.infer_davis`` and J&F, ``cli.train`` (the small R50
                  model, 2+2 layers, bf16, 128 x 160, 96 steps), trained
                  inference and J&F: K2 4 per step, K1 4 per step and per
                  dispatch, the loss falls, every J&F finite in [0, 1].
-20. long_run  -- ``ocpg_tpu_torch.scripts.train_long_run --dataset davis`` at
-                 60 steps of the full-width ytvos_r101_boxsup model fed by
+20. long_run  -- ``ocpg_tpu_torch.scripts.train_long_run`` (its default
+                 Ref-YouTube-VOS tree with h5 heat maps) at 60 steps of the
+                 full-width ytvos_r101_boxsup model fed by
                  ClipLoader(compact=True) from 6 videos x 16 frames at 720 x
                  1280: the checkpoint at 30 read back bit-identical, restored
                  into fresh objects bit-identical and replayed twice over 10
@@ -231,8 +251,10 @@ exit, no result line) if it goes wrong:
                  dense GFLOP beside the JAX bench's HLO count.
 25. bench_scripts -- the measurement drivers of ocpg_tpu_torch/scripts at
                  their shortest: bench_train (timing with --trace, then
-                 --e2e on a Ref-DAVIS tree), bench_serving, bench_eval_e2e
-                 (--dataset jhmdb), bench_loader (--dataset davis),
+                 --e2e on its default Ref-YTVOS tree), bench_serving,
+                 bench_eval_e2e (its default A2D tree), bench_loader (its
+                 default Ref-YTVOS tree, then --dataset davis at the same
+                 worker counts),
                  bench_swin_micro, bench_train_sweep (one R101 point in a
                  child process, whose launches it reports) and
                  profile_bench: each record's keys and values, launches per
@@ -242,9 +264,10 @@ Every launch counter (K1-K7) is reset just before each of the phases
 serve, a2d, train, swin_serve, swin_a2d, swin_train (each of its two runs),
 resume, train_cli (each of its two runs), multi_gpu (each run and rank:
 the ranks count in their own processes and return their counts, which
-are summed), eval_cli (each of its two runs),
+are summed), eval_cli (each of its three runs),
 pretrain_cli, infer_davis, infer_ytvos (each of its two runs), pretrained
-(its forward, each infer_ytvos run and the train run), pseudo_labels,
+(its forward, each infer_ytvos run and the train run), pseudo_labels
+(generate_for_frame, each generate_anno.main run and the train run),
 demo_e2e, long_run, memory_envelope, std_op, msda_bench, bench (each of
 its four stages, by the bench itself) and bench_scripts (each script)
 runs its path and read just after; the
@@ -292,7 +315,10 @@ from ocpg_tpu_torch.ops.ms_deform_attn import msda_bwd_work, msda_work
 from ocpg_tpu_torch.ops.window_attention import wattn_work
 from ocpg_tpu_torch.preprocess.sim_model import no_tf32
 from ocpg_tpu_torch.scripts import bench_msda_kernel
-from ocpg_tpu_torch.scripts.bench_eval_e2e import JHMDB_H, JHMDB_W, build_jhmdb_tree
+from ocpg_tpu_torch.scripts.bench_eval_e2e import H as A2D_H
+from ocpg_tpu_torch.scripts.bench_eval_e2e import W as A2D_W
+from ocpg_tpu_torch.scripts.bench_eval_e2e import (JHMDB_H, JHMDB_W, build_a2d_tree,
+                                                   build_jhmdb_tree)
 # the Swin-B serving calls' geometry (window, head width, grids, heads) and
 # the window attention's seeded inputs
 from ocpg_tpu_torch.scripts.bench_swin_micro import (SWIN_GRIDS, SWIN_HEAD_DIM, SWIN_HEADS,
@@ -1230,9 +1256,11 @@ def phase_resume(results):
 
 
 # --------------------------------------------------------------- train_cli --
-# the Ref-DAVIS tree of phase train_cli: one video of 8 frames at the native
-# YTVOS size, one expression, full masks (the card has no h5py, so no
-# Ref-YTVOS heatmaps; PERF.md section 4)
+# the trees of the CLI phases: 8 frames at the native YTVOS size.  Phase
+# train_cli trains on bench_loader.build_tree's Ref-YouTube-VOS tree (one
+# video, one expression, its AnnotationsWeakly h5 heat maps written and
+# read by data/h5.py); write_davis_tree's Ref-DAVIS trees (full masks, no
+# heat maps) feed multi_gpu, infer_davis and pretrained
 CLI_FRAMES, CLI_H, CLI_W = 8, 720, 1280
 
 
@@ -1311,28 +1339,69 @@ def pinned_copy_ms(batch):
     return ms, nbytes
 
 
+def h5_read_ms(root):
+    """Host ms per ``read_datasets`` of one frame's 720 x 1280 float32
+    heatPoint with 1 and with 3 instances (the file just written, so in the
+    page cache), beside the PIL decode of a 720 x 1280 JPEG of the tree."""
+    from PIL import Image
+
+    from ocpg_tpu_torch.data.h5 import read_datasets, write_datasets
+
+    rng = np.random.default_rng(3)
+    out = {}
+    for n in (1, 3):
+        path = os.path.join(root, f"heat{n}.h5")
+        heat = rng.random((n, CLI_H, CLI_W), dtype=np.float32)
+        write_datasets(path, (("obj_ids", np.arange(1, n + 1)), ("heatPoint", heat),
+                              ("heatBBox", heat)))
+        check(np.array_equal(read_datasets(path, ("heatPoint",))["heatPoint"], heat),
+              f"h5 read of {n} instances")
+        out[f"h5_heatpoint_{n}_ms"] = median_ms(
+            lambda: read_datasets(path, ("heatPoint", "obj_ids")))
+    jpg = os.path.join(root, "ytvos", "train", "JPEGImages", "vid0", "00000.jpg")
+    out["pil_jpeg_ms"] = median_ms(lambda: np.asarray(Image.open(jpg).convert("RGB")))
+    return out
+
+
+def median_ms(fn, iters=20):
+    """Median host ms of ``fn()`` over ``iters`` calls after one warm call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def phase_train_cli(results):
     """The port's train CLI in this process, as a user runs it: the
     full-width ytvos_r101_boxsup model (ResNet-101, bf16, canvas 512 x 640,
-    B=1, T=3) on a seeded Ref-DAVIS tree of 720 x 1280 frames, one epoch,
-    then --resume for a second.  K1 and K2 8 times a step over every step of
-    both runs, K3-K7 never; every logged loss finite; log.txt with epochs 0
-    and 1; the latest checkpoint at 2 x steps per epoch; the frozen ResNet
-    stem and text encoder of the resumed model bit-identical to their init.
-    Also the loader alone (batches/s with its worker count and the host's
-    cores) and one compact batch's pinned copy."""
+    B=1, T=3) on a seeded Ref-YouTube-VOS tree of 720 x 1280 frames with
+    its AnnotationsWeakly h5 heat maps (``bench_loader.build_tree``, written
+    and read by ``data/h5.py``), one epoch, then --resume for a second.  The
+    first batch's heat maps and weak masks nonzero inside the object; K1
+    and K2 8 times a step over every step of both runs, K3-K7 never; no cv2
+    and no h5py loaded; every logged loss finite; log.txt with epochs 0 and
+    1; the latest checkpoint at 2 x steps per epoch; the frozen ResNet stem
+    and text encoder of the resumed model bit-identical to their init.  Also
+    the loader alone (batches/s with its worker count and the host's cores),
+    one compact batch's pinned copy and one heat-map read beside one JPEG
+    decode."""
     from ocpg_tpu_torch.cli import train as train_cli
     from ocpg_tpu_torch.data.imageio import decoder
+    from ocpg_tpu_torch.scripts.bench_loader import build_tree
 
     gc.collect()
     torch.cuda.empty_cache()
     smi = nvidia_smi_line()
     root = tempfile.mkdtemp(prefix="train_cli_", dir=_build.BUILD_DIR)
     try:
-        tree, out = os.path.join(root, "davis"), os.path.join(root, "run")
+        tree, out = os.path.join(root, "ytvos"), os.path.join(root, "run")
         t0 = time.perf_counter()
-        write_davis_tree(tree)
-        argv = ["--dataset_file", "davis", "--davis_path", tree, "--backbone", "resnet101",
+        build_tree(tree, 1, CLI_FRAMES, CLI_H, CLI_W, dataset="ytvos")
+        tree_s = time.perf_counter() - t0
+        argv = ["--dataset_file", "ytvos", "--ytvos_path", tree, "--backbone", "resnet101",
                 "--supervision", "box", "--num_frames", "3", "--batch_size", "1",
                 "--output_dir", out, "--log_every", "1", "--tb_every", "0",
                 "--debug_images_every", "0"]
@@ -1345,15 +1414,31 @@ def phase_train_cli(results):
         dataset = train_cli.make_dataset(args, cfg)
         loader = train_cli.make_loader(args, cfg, dataset)
         steps = len(dataset) // cfg.batch_size
-        log(f"train_cli: Ref-DAVIS tree, {CLI_FRAMES} frames at {CLI_H}x{CLI_W}, "
-            f"{len(dataset)} clips, written in {time.perf_counter() - t0:.1f} s; decode "
+        log(f"train_cli: Ref-YTVOS tree with h5 heat maps, {CLI_FRAMES} frames at "
+            f"{CLI_H}x{CLI_W}, {len(dataset)} clips, written in {tree_s:.2f} s; decode "
             f"{decoder()}")
+        reads = h5_read_ms(root)
+        log(f"train_cli: one read_datasets of a {CLI_H}x{CLI_W} heatPoint (+ obj_ids): "
+            f"{reads['h5_heatpoint_1_ms']:.3f} ms with 1 instance, "
+            f"{reads['h5_heatpoint_3_ms']:.3f} ms with 3; PIL decode of one {CLI_H}x{CLI_W} "
+            f"JPEG {reads['pil_jpeg_ms']:.3f} ms (host medians of 20, warm page cache) [{smi}]")
 
         # the loader alone: decode, transform and batch at 720p
         t0 = time.perf_counter()
         n = sum(1 for _ in loader.epoch(0)) + sum(1 for _ in loader.epoch(1))
         secs = time.perf_counter() - t0
         first = next(iter(loader.epoch(0)))
+        t = first["targets"]
+        inside = np.asarray(t["masks"]) > 0
+        heat_in = float((np.asarray(t["weights"], np.float32)[inside] > 0).mean())
+        weak_in = float((np.asarray(t["weak_masks"])[inside] > 0).mean())
+        # (the heat map resizes linearly, the mask by nearest: a one-pixel
+        # ring of the object can sample the zero outside it)
+        check(inside.any() and heat_in >= 0.95 and weak_in >= 0.95,
+              f"train_cli: the batch's heat maps ({heat_in:.4f} nonzero) or weak masks "
+              f"({weak_in:.4f}) are not the object's")
+        log(f"train_cli: first batch: {inside.sum()} object pixels, heat map nonzero on "
+            f"{100 * heat_in:.2f}% of them, weak mask on {100 * weak_in:.2f}%")
         copy_ms, nbytes = pinned_copy_ms(first)
         log(f"train_cli: loader alone {n} batches in {secs:.3f} s = {n / secs:.2f} "
             f"batches/s, {loader.num_workers} worker threads on {os.cpu_count()} host "
@@ -1374,7 +1459,8 @@ def phase_train_cli(results):
             check(counts == counts_of(K1=8 * steps, K2=8 * steps),
                   f"train_cli {run} run of {steps} steps launched {counts} (want K1 and K2 "
                   f"8 per step)")
-            check("cv2" not in sys.modules, "train_cli: the train path imported cv2")
+            check("cv2" not in sys.modules and "h5py" not in sys.modules,
+                  "train_cli: the train path imported cv2 or h5py")
             paths[run] = counts
             log(f"train_cli: {run} run, {steps} steps in {time.perf_counter() - t0:.1f} s "
                 f"(model build, loader and checkpoint included), launches {counts} [{smi}]")
@@ -1408,7 +1494,8 @@ def phase_train_cli(results):
             f"tensors (ResNet stem and layer1, text encoder) bit-identical to the init after "
             f"the resume, {moved} others moved; latest checkpoint step {latest} [{smi}]")
         results["train_cli"] = {"steps_per_epoch": steps, "peak_gib": peak,
-                                "loader_batches_per_s": n / secs, "pinned_copy_ms": copy_ms}
+                                "loader_batches_per_s": n / secs, "pinned_copy_ms": copy_ms,
+                                **reads}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1884,8 +1971,10 @@ def timed_calls(module, names, secs):
             setattr(module, n, fn)
 
 
-# videos and frames of the phase's JHMDB tree (240 x 320 PNG frames)
+# videos and frames of the phase's JHMDB tree (240 x 320 PNG frames) and
+# A2D tree (320 x 568 mp4 clips, the middle frame annotated)
 JHMDB_VIDEOS, JHMDB_FRAMES = 7, 12
+A2D_VIDEOS, A2D_FRAMES = 7, 8
 
 
 def write_jhmdb_tree(root):
@@ -1897,13 +1986,16 @@ A2D_KEYS = ("mAP 0.5:0.95", "AP50", "AP75", "overall_iou", "mean_iou",
 
 
 def phase_eval_cli(results):
-    """``python -m ocpg_tpu_torch.cli.evaluate --dataset_file jhmdb`` in this
-    process at full width (R101, bf16) with the CLI's defaults (device
-    postprocess, f32), batches of 2 with a padded tail, then again with
-    ``--postprocess host``: K1 8 per forward and nothing else, the A2D
-    metric keys finite in [0, 1], the two dicts within 1e-6.  Clips/s, one
-    forward with its postprocess in device ms, the packed mask wire beside
-    the float32 canvas, the host seconds in RLE encoding and in the metrics."""
+    """``python -m ocpg_tpu_torch.cli.evaluate`` in this process at full
+    width (R101, bf16) with the CLI's defaults (device postprocess, f32),
+    batches of 2 with a padded tail: ``--dataset_file a2d`` on a seeded
+    A2D-Sentences tree (mp4 clips by cv2, the annotation h5 files by
+    ``data/h5.py``), then ``--dataset_file jhmdb`` and again with
+    ``--postprocess host``.  K1 8 per forward and nothing else, the A2D
+    metric keys finite in [0, 1], the two JHMDB dicts within 1e-6.
+    Clips/s, one forward with its postprocess in device ms, the packed mask
+    wire beside the float32 canvas, the host seconds in RLE encoding and in
+    the metrics."""
     from ocpg_tpu_torch.cli import evaluate as evaluate_cli
     from ocpg_tpu_torch.engine import evaluate
     from ocpg_tpu_torch.models import postprocessors
@@ -1911,18 +2003,30 @@ def phase_eval_cli(results):
     gc.collect()
     torch.cuda.empty_cache()
     smi = nvidia_smi_line()
-    root = tempfile.mkdtemp(prefix="eval_cli_", dir=_build.BUILD_DIR)
+    base = tempfile.mkdtemp(prefix="eval_cli_", dir=_build.BUILD_DIR)
     try:
+        a2d, jhmdb = os.path.join(base, "a2d"), os.path.join(base, "jhmdb")
         t0 = time.perf_counter()
-        write_jhmdb_tree(root)
+        build_a2d_tree(a2d, A2D_VIDEOS, A2D_FRAMES)
+        log(f"eval_cli: A2D tree, {A2D_VIDEOS} mp4 clips of {A2D_FRAMES} frames at "
+            f"{A2D_H}x{A2D_W} with their annotation h5 files, written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        write_jhmdb_tree(jhmdb)
         log(f"eval_cli: JHMDB tree, {JHMDB_VIDEOS} videos of {JHMDB_FRAMES} PNG frames at "
             f"{JHMDB_H}x{JHMDB_W}, written in {time.perf_counter() - t0:.1f} s")
-        argv = ["--dataset_file", "jhmdb", "--jhmdb_path", root, "--batch_size", "2"]
-        batches = -(-JHMDB_VIDEOS // 2)
-        metrics, kept = {}, []
+        # (path, argv, clips): A2D-Sentences, the paper's evaluation, then
+        # JHMDB with the device and the host postprocess
+        runs = (("eval_cli_a2d", ["--dataset_file", "a2d", "--a2d_path", a2d], A2D_VIDEOS),
+                ("eval_cli", ["--dataset_file", "jhmdb", "--jhmdb_path", jhmdb,
+                              "--postprocess", "device"], JHMDB_VIDEOS),
+                ("eval_cli_host", ["--dataset_file", "jhmdb", "--jhmdb_path", jhmdb,
+                                   "--postprocess", "host"], JHMDB_VIDEOS))
+        metrics, kept, clips_per_s = {}, [], {}
         run = evaluate.evaluate_a2d
-        for post in ("device", "host"):
+        for path, argv, clips in runs:
             secs = {}
+            batches = -(-clips // 2)
 
             def keep(model, loader, **kw):
                 kept.append((model, loader))
@@ -1938,33 +2042,35 @@ def phase_eval_cli(results):
                         timed_calls(postprocessors, ("rle_encode",), secs):
                     reset_counts()
                     t0 = time.perf_counter()
-                    metrics[post] = evaluate_cli.main(argv + ["--postprocess", post])
+                    metrics[path] = evaluate_cli.main(argv + ["--batch_size", "2"])
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
             finally:
                 evaluate.evaluate_a2d = run
             counts = read_counts()
             check(counts == counts_of(K1=8 * batches),
-                  f"eval_cli {post}: {batches} batches launched {counts} (want K1 8 a forward)")
-            results["paths"]["eval_cli" if post == "device" else "eval_cli_host"] = counts
-            m = metrics[post]
-            check(tuple(sorted(m)) == tuple(sorted(A2D_KEYS)), f"eval_cli keys {sorted(m)}")
+                  f"{path}: {batches} batches launched {counts} (want K1 8 a forward)")
+            results["paths"][path] = counts
+            m = metrics[path]
+            check(tuple(sorted(m)) == tuple(sorted(A2D_KEYS)), f"{path} keys {sorted(m)}")
             check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
-                  f"eval_cli {post} metrics {m}")
+                  f"{path} metrics {m}")
             rle_s, loop_s = secs.get("rle_encode", 0.0), secs["loop"]
-            log(f"eval_cli: --postprocess {post}: {JHMDB_VIDEOS} clips in {wall:.2f} s = "
-                f"{JHMDB_VIDEOS / wall:.2f} clips/s (model build included; the eval loop "
-                f"{loop_s:.2f} s = {JHMDB_VIDEOS / loop_s:.2f} clips/s); RLE encode "
+            clips_per_s[path] = clips / loop_s
+            log(f"{path}: {' '.join(argv[:2] + argv[4:])}: {clips} clips in {wall:.2f} s = "
+                f"{clips / wall:.2f} clips/s (model build included; the eval loop "
+                f"{loop_s:.2f} s = {clips / loop_s:.2f} clips/s); RLE encode "
                 f"{rle_s:.3f} s = {100 * rle_s / loop_s:.1f}% of the loop (native codec "
                 f"{native_rle()}), metrics {secs['_metrics']:.3f} s = "
                 f"{100 * secs['_metrics'] / loop_s:.1f}%; launches {counts} [{smi}]")
-        worst = max(abs(metrics["device"][k] - metrics["host"][k]) for k in A2D_KEYS)
+        log(f"eval_cli: A2D metrics {json.dumps(metrics['eval_cli_a2d'])}")
+        worst = max(abs(metrics["eval_cli"][k] - metrics["eval_cli_host"][k]) for k in A2D_KEYS)
         check(worst <= 1e-6, f"eval_cli device vs host postprocess: {metrics}")
-        log(f"eval_cli: metrics {json.dumps(metrics['device'])}; device vs host postprocess "
-            f"max |diff| {worst:.2e} (limit 1e-6)")
+        log(f"eval_cli: JHMDB metrics {json.dumps(metrics['eval_cli'])}; device vs host "
+            f"postprocess max |diff| {worst:.2e} (limit 1e-6)")
 
-        # one forward with its postprocess, timed on the CLI's model and first batch
-        model, loader = kept[0]
+        # one forward with its postprocess, timed on the JHMDB run's model and first batch
+        model, loader = kept[1]
         batch = next(iter(loader.epoch(0)))
         sizes = np.asarray(batch["targets"]["size"])
         orig = np.asarray(batch["targets"]["orig_size"])
@@ -1983,9 +2089,10 @@ def phase_eval_cli(results):
             f"): {dev_ms:.2f} device ms, {host_ms:.2f} host ms to enqueue; mask wire "
             f"{packed.numel()} B packed vs {canvas_bytes} B float32 canvas "
             f"({canvas_bytes / packed.numel():.0f}x) [{smi}]")
-        results["eval_cli"] = {"forward_post_ms": dev_ms, "metrics": metrics["device"]}
+        results["eval_cli"] = {"forward_post_ms": dev_ms, "metrics": metrics,
+                               "clips_per_s": clips_per_s}
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(base, ignore_errors=True)
 
 
 def native_rle() -> bool:
@@ -2741,7 +2848,9 @@ def phase_pseudo_labels(results):
     sim model on the card and on the CPU; ``generate_for_frame`` on a
     seeded 320 x 576 frame with 3 instances (one empty), without and with
     the CRF: centres equal, heat maps within 1e-3, each bbox choice the
-    CPU's or a tie within 1e-5 (TF32 off on the card)."""
+    CPU's or a tie within 1e-5 (TF32 off on the card).  Then OCPG's own data
+    path on the card (``pseudo_label_chain``): ``generate_anno.main`` for
+    Ref-YTVOS and A2D, its h5 files read back, 2 train steps on them."""
     from ocpg_tpu_torch.preprocess import generate_anno, sim_model
     from ocpg_tpu_torch.utils.torch_weights import load_torch_file
 
@@ -2822,9 +2931,128 @@ def phase_pseudo_labels(results):
             f"layer4 keys 1x3x{PSEUDO_H}x{PSEUDO_W} {keys_ms:.2f} device ms (float32, TF32 "
             f"off) [{smi}]")
         results["pseudo_labels"] = {"frame_s": secs["cuda", False],
-                                    "frame_crf_s": secs["cuda", True], "keys_ms": keys_ms}
+                                    "frame_crf_s": secs["cuda", True], "keys_ms": keys_ms,
+                                    **pseudo_label_chain(results, root, pth, models["cuda"], smi)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# the Ref-YTVOS tree generate_anno.main labels and cli.train takes 2 steps
+# on: 2 videos of one 720 x 1280 frame each (one clip a video); the
+# one-video A2D tree: 8 frames at 320 x 568, the middle one annotated
+PSEUDO_VIDEOS, PSEUDO_A2D_FRAMES = 2, 8
+
+
+def pseudo_label_chain(results, root, pth, model, smi):
+    """OCPG's own data path on the card: ``generate_anno.main`` (the sim
+    model from ``pth`` on the card) writes the Ref-YTVOS pseudo-labels, read
+    back by ``data/h5.py`` equal bit for bit to ``generate_for_frame`` with
+    ``model`` (the same weights); ``cli.train`` takes 2 full-width steps on
+    them; ``--dataset a2d`` rewrites a one-video A2D annotation file in
+    place.  Returns seconds per frame of each ``main`` run."""
+    import cv2
+
+    from ocpg_tpu_torch.cli import train as train_cli
+    from ocpg_tpu_torch.data.h5 import read_datasets
+    from ocpg_tpu_torch.data.imageio import read_palette, read_rgb
+    from ocpg_tpu_torch.preprocess import generate_anno
+    from ocpg_tpu_torch.scripts.bench_loader import build_tree
+
+    out = {}
+    # (a) Ref-YTVOS: frames, masks and expressions without heat maps, then main
+    tree = os.path.join(root, "ytvos")
+    t0 = time.perf_counter()
+    build_tree(tree, PSEUDO_VIDEOS, 1, CLI_H, CLI_W, dataset="davis")
+    tree_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    generate_anno.main(["--dataset", "ytvos", "--root", tree, "--densecl", pth])
+    torch.cuda.synchronize()
+    out["main_ytvos_frame_s"] = (time.perf_counter() - t0) / PSEUDO_VIDEOS
+    counts = read_counts()
+    check(counts == counts_of(), f"pseudo_labels main ytvos launched {counts}")
+    results["paths"]["pseudo_labels_main_ytvos"] = counts
+    train_dir = os.path.join(tree, "train")
+    for v in range(PSEUDO_VIDEOS):
+        got = read_datasets(os.path.join(train_dir, "AnnotationsWeakly", f"vid{v}", "00000.h5"))
+        pal = read_palette(os.path.join(train_dir, "Annotations", f"vid{v}", "00000.png"))
+        img = read_rgb(os.path.join(train_dir, "JPEGImages", f"vid{v}", "00000.jpg"))
+        obj_ids = [int(o) for o in np.unique(pal) if o != 0]
+        want = dict(zip(("heatBBox", "heatPoint", "centerPoint"), generate_anno.generate_for_frame(
+            model, img, np.stack([(pal == o).astype(np.float32) for o in obj_ids]))))
+        want["obj_ids"] = np.asarray(obj_ids)
+        check(sorted(got) == sorted(want) and all(
+            got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+            and np.array_equal(got[k], want[k]) for k in want),
+              f"pseudo_labels: vid{v}'s h5 ({sorted(got)}) is not generate_for_frame's maps")
+    log(f"pseudo_labels: generate_anno.main --dataset ytvos on {PSEUDO_VIDEOS} videos of one "
+        f"{CLI_H}x{CLI_W} frame (tree written in {tree_s:.2f} s): "
+        f"{out['main_ytvos_frame_s']:.2f} s per frame (sim model build and load included); "
+        f"each AnnotationsWeakly h5 read back equal bit for bit to generate_for_frame [{smi}]")
+
+    # (b) two full-width train steps on the pseudo-labels
+    argv = ["--dataset_file", "ytvos", "--ytvos_path", tree, "--backbone", "resnet101",
+            "--supervision", "box", "--num_frames", "3", "--batch_size", "1", "--epochs", "1",
+            "--output_dir", os.path.join(root, "train"), "--log_every", "1", "--tb_every", "0"]
+    reset_counts()
+    t0 = time.perf_counter()
+    train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == counts_of(K1=8 * PSEUDO_VIDEOS, K2=8 * PSEUDO_VIDEOS),
+          f"pseudo_labels train: {PSEUDO_VIDEOS} steps launched {counts} (want K1 and K2 8 "
+          f"per step)")
+    results["paths"]["pseudo_labels_train"] = counts
+    with open(os.path.join(root, "train", "log.txt")) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    check(len(lines) == 1 and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                                  for r in lines), f"pseudo_labels train log {lines}")
+    log(f"pseudo_labels: cli.train on the pseudo-labels, {PSEUDO_VIDEOS} steps in {train_s:.1f} "
+        f"s (model build, loader and checkpoint included), mean loss {lines[0]['loss']:.4f}, "
+        f"launches {counts} [{smi}]")
+
+    # (c) A2D: the annotation file rewritten in place
+    a2d = os.path.join(root, "a2d")
+    t0 = time.perf_counter()
+    build_a2d_tree(a2d, 1, PSEUDO_A2D_FRAMES)
+    tree_s = time.perf_counter() - t0
+    ann = os.path.join(a2d, "text_annotations", "a2d_annotation_with_instances", "vid000",
+                       f"{PSEUDO_A2D_FRAMES // 2:05d}.h5")
+    before = read_datasets(ann)
+    reset_counts()
+    t0 = time.perf_counter()
+    generate_anno.main(["--dataset", "a2d", "--root", a2d, "--densecl", pth])
+    torch.cuda.synchronize()
+    out["main_a2d_frame_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == counts_of(), f"pseudo_labels main a2d launched {counts}")
+    results["paths"]["pseudo_labels_main_a2d"] = counts
+    after = read_datasets(ann)
+    cap = cv2.VideoCapture(os.path.join(a2d, "Release", "clips320H", "vid000.mp4"))
+    frames = []
+    while True:
+        ok, fr = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(fr, cv2.COLOR_BGR2RGB))
+    cap.release()
+    masks = np.transpose(before["reMask"][None], (0, 2, 1))
+    want = dict(zip(("heatBBox", "heatPoint", "centerPoint"), generate_anno.generate_for_frame(
+        model, frames[PSEUDO_A2D_FRAMES // 2 - 1], masks)))
+    check(sorted(after) == ["centerPoint", "heatBBox", "heatPoint", "instance", "reMask"]
+          and all(after[k].dtype == before[k].dtype
+                  and after[k].tobytes() == before[k].tobytes() for k in ("instance", "reMask"))
+          and all(after[k].dtype == want[k].dtype and np.array_equal(after[k], want[k])
+                  for k in want),
+          f"pseudo_labels: the A2D annotation file after main ({sorted(after)}) kept or "
+          f"wrote the wrong datasets")
+    log(f"pseudo_labels: generate_anno.main --dataset a2d on one mp4 of {PSEUDO_A2D_FRAMES} "
+        f"frames at {A2D_H}x{A2D_W} (tree written in {tree_s:.2f} s): "
+        f"{out['main_a2d_frame_s']:.2f} s for its one annotated frame (sim model build, "
+        f"load and mp4 decode included); instance and reMask bit-identical, heatBBox, "
+        f"heatPoint and centerPoint generate_for_frame's [{smi}]")
+    return out
 
 
 # ---------------------------------------------------------------- demo_e2e --
@@ -2892,10 +3120,11 @@ LONG_STEPS, LONG_CKPT, LONG_REPLAY, LONG_VAL_BATCHES = 60, 30, 10, 2
 
 
 def phase_long_run(results):
-    """``ocpg_tpu_torch.scripts.train_long_run --dataset davis`` in this
-    process at a shortened length: the full-width ytvos_r101_boxsup model
-    (bf16, B=1, T=3, 512 x 640) fed by ClipLoader(compact=True) from a
-    Ref-DAVIS tree of 6 videos x 16 frames at 720 x 1280.  K1 and K2 8 per
+    """``ocpg_tpu_torch.scripts.train_long_run`` in this process at a
+    shortened length: the full-width ytvos_r101_boxsup model (bf16, B=1,
+    T=3, 512 x 640) fed by ClipLoader(compact=True) from its default
+    Ref-YouTube-VOS tree (6 videos x 16 frames at 720 x 1280, the h5 heat
+    maps written and read by ``data/h5.py``).  K1 and K2 8 per
     train step (live and both replays) and K1 8 per val forward, K3-K7
     never; the restored state bit-identical to the saved one, the first
     replayed loss equal to the live one and the first two within 1e-3
@@ -2910,7 +3139,8 @@ def phase_long_run(results):
     try:
         config = long_run.LongRunConfig(steps=LONG_STEPS, ckpt_step=LONG_CKPT,
                                         replay_steps=LONG_REPLAY, eval_every=LONG_STEPS,
-                                        dataset="davis", out=os.path.join(root, "record.json"))
+                                        out=os.path.join(root, "record.json"))
+        check(config.dataset == "ytvos", f"long_run's default tree is {config.dataset}")
         reset_counts()
         t0 = time.perf_counter()
         rec = long_run.run(config)
@@ -2923,7 +3153,7 @@ def phase_long_run(results):
               f"long_run: {train_steps} train steps and {val_forwards} val forwards "
               f"launched {counts}")
         results["paths"]["long_run"] = counts
-        check(rec["platform"] == smi and rec["dataset"] == "davis"
+        check(rec["platform"] == smi and rec["dataset"] == "ytvos"
               and rec["resume_state_bit_identical"]
               and rec["resume_replay_steps"] == LONG_REPLAY
               and rec["replay_losses_restored"][0] == rec["replay_losses_live"][0]
@@ -3102,9 +3332,10 @@ def phase_bench_scripts(results):
     """Each measurement driver of ``ocpg_tpu_torch/scripts`` in this
     process at its shortest, as a user runs it (``main(argv)``), its
     record printed on a line of its own: bench_train (timing with --trace,
-    then --e2e on a Ref-DAVIS tree), bench_serving (one round of 2
-    requests), bench_eval_e2e (--dataset jhmdb, 3 videos), bench_loader
-    (--dataset davis, --step_ms from phase bench), bench_swin_micro,
+    then --e2e on its default Ref-YTVOS tree), bench_serving (one round of
+    2 requests), bench_eval_e2e (its default A2D tree, 3 videos),
+    bench_loader (its default Ref-YTVOS tree, then --dataset davis, at the
+    same worker counts, --step_ms from phase bench), bench_swin_micro,
     bench_train_sweep (one R101 point in a child process) and
     profile_bench.  Each run's kernel launches are a path of their own:
     K1 and K2 8 per train step, K1 8 per forward, K7 24 per Swin-B
@@ -3136,11 +3367,12 @@ def phase_bench_scripts(results):
               and rec["gflop_per_step_kernels"] > 0 and rec["profile_device_ms_by_class"]
               and rec["nvidia_smi"] == smi, f"bench_train: launches {counts}, record {rec}")
         rec, counts = timed("bench_train_e2e", lambda: bench_train.main(
-            ["--e2e", "4", "--dataset", "davis", "--e2e_videos", "2",
+            ["--e2e", "4", "--e2e_videos", "2",
              "--e2e_frames_per_video", "6", "--e2e_workers", "2", "--out", out("e2e.json")]))
         steps = 4 + 4 + 1 + 4
         check(counts == counts_of(K1=8 * steps, K2=8 * steps) and rec["e2e_train_step_ms"] > 0
-              and rec["resident_step_ms"] > 0 and math.isfinite(rec["last_loss"]),
+              and rec["resident_step_ms"] > 0 and math.isfinite(rec["last_loss"])
+              and rec["dataset"] == "ytvos",
               f"bench_train --e2e: {steps} steps launched {counts}, record {rec}")
 
         rec, counts = timed("bench_serving", lambda: bench_serving.main(
@@ -3151,20 +3383,28 @@ def phase_bench_scripts(results):
               and all(t > 0 for t in times), f"bench_serving: launches {counts}, record {rec}")
 
         rec, counts = timed("bench_eval_e2e", lambda: bench_eval_e2e.main(
-            ["--dataset", "jhmdb", "--videos", "3", "--frames", "6", "--resident_iters", "3",
+            ["--videos", "3", "--frames", "6", "--resident_iters", "3",
              "--out", out("eval.json")]))
-        check(counts["K1"] > 0 and counts["K1"] % 8 == 0
+        check(rec["dataset"] == "a2d" and counts["K1"] > 0 and counts["K1"] % 8 == 0
               and counts == counts_of(K1=counts["K1"]) and rec["metrics_finite"]
               and rec["metrics_host_vs_device_max_abs_delta"] <= 1e-6
               and all(rec[k] > 0 for k in rec if k.startswith("e2e_eval_ms")),
               f"bench_eval_e2e: launches {counts}, record {rec}")
 
-        rec, counts = timed("bench_loader", lambda: bench_loader.main(
-            ["--dataset", "davis", "--videos", "2", "--frames-per-video", "6", "--batches", "4",
-             "--workers", "1", "2", "--step_ms", str(results["bench"]["train_step_ms"]),
-             "--out", out("loader.json")]))
-        check(counts == counts_of() and rec["value"] > 0 and "feeds_one_gpu" in rec,
-              f"bench_loader: launches {counts}, record {rec}")
+        loader_recs = {}
+        for dataset in ("ytvos", "davis"):
+            rec, counts = timed(f"bench_loader_{dataset}", lambda: bench_loader.main(
+                ["--dataset", dataset, "--videos", "2", "--frames-per-video", "6",
+                 "--batches", "8", "--workers", "1", "2",
+                 "--step_ms", str(results["bench"]["train_step_ms"]),
+                 "--out", out("loader.json")]))
+            check(counts == counts_of() and rec["value"] > 0 and "feeds_one_gpu" in rec
+                  and rec["dataset"] == dataset,
+                  f"bench_loader --dataset {dataset}: launches {counts}, record {rec}")
+            loader_recs[dataset] = rec["batches_per_sec_by_workers"]
+        log(f"bench_loader: batches/s by workers, Ref-YTVOS (h5 heat maps) "
+            f"{loader_recs['ytvos']} beside Ref-DAVIS {loader_recs['davis']} "
+            f"({os.cpu_count()} host cores) [{smi}]")
 
         rec, counts = timed("bench_swin_micro", lambda: bench_swin_micro.main(
             ["--iters", "5", "--out", out("swin_micro.json")]))

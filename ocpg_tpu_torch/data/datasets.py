@@ -19,11 +19,13 @@ Quirks of the reference kept on purpose: YTVOS box supervision reads
 for box; A2D scales ``weight2mask``'s pixel-unit pseudo box by (w, h)
 again before clamping.
 
-The JAX package imports h5py and PIL when the module loads.  Here each
-package is imported by the reader call that needs it: h5py by the YTVOS
-and A2D readers, cv2 by the A2D reader's mp4 decode, scipy by the JHMDB
-reader, PIL only where ``imageio`` hands a file to it.  A missing package
-raises ``ImportError`` naming it at that call.
+The JAX package reads the h5 files with h5py, imported when the module
+loads; here ``h5.read_datasets`` (numpy and the standard library) reads
+only the datasets each reader needs, so no h5py is needed.  The other
+packages are imported by the reader call that needs them: cv2 by the A2D
+reader's mp4 decode, scipy by the JHMDB reader, PIL only where
+``imageio`` hands a file to it.  A missing package raises
+``ImportError`` naming it at that call.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .h5 import read_datasets
 from .imageio import read_palette, read_rgb
 from .transforms import Clip
 
@@ -140,8 +143,6 @@ class YTVOSDataset:
 
     def get_clip(self, idx: int, rng: random.Random) -> ClipRecord:
         """Retry-until-valid is the caller's job (the loader's)."""
-        import h5py
-
         meta = self.metas[idx]
         frames = meta["frames"]
         obj_id = meta["obj_id"]
@@ -153,10 +154,11 @@ class YTVOSDataset:
             img = read_rgb(self.img_folder / "JPEGImages" / meta["video"] / f"{name}.jpg")
             pal = read_palette(self.img_folder / "Annotations" / meta["video"] / f"{name}.png")
             mask = (pal == obj_id).astype(np.float32)
-            with h5py.File(self.img_folder / "AnnotationsWeakly" / meta["video"] / f"{name}.h5", "r") as f:
-                # NOTE: box mode reads heatPoint as in the reference (ytvos.py:175-178)
-                heatmaps = np.asarray(f["heatPoint"], np.float32)
-                obj_ids = [int(o) for o in f["obj_ids"][()]]
+            weak = read_datasets(self.img_folder / "AnnotationsWeakly" / meta["video"]
+                                 / f"{name}.h5", ("heatPoint", "obj_ids"))
+            # NOTE: box mode reads heatPoint as in the reference (ytvos.py:175-178)
+            heatmaps = np.asarray(weak["heatPoint"], np.float32)
+            obj_ids = [int(o) for o in weak["obj_ids"]]
             if obj_id in obj_ids:
                 inst = obj_ids.index(obj_id)
                 weak_mask, weak_box = weight2mask(heatmaps, inst)
@@ -198,8 +200,6 @@ class A2DSentencesDataset:
 
     def __init__(self, root: str, num_frames: int = 3, supervision: str = "box",
                  split: str = "train"):
-        import h5py
-
         self.root = Path(root)
         self.num_frames = num_frames
         self.supervision = supervision
@@ -225,8 +225,8 @@ class A2DSentencesDataset:
                     continue
                 for hf in sorted(d.glob("*.h5")):
                     frame_idx = int(hf.stem)
-                    with h5py.File(hf, "r") as f:
-                        instances = [int(x) for x in np.atleast_1d(f["instance"][()])]
+                    instances = [int(x) for x in
+                                 np.atleast_1d(read_datasets(hf, ("instance",))["instance"])]
                     if int(instance_id) in instances:
                         self.samples.append((video_id, instance_id, query, frame_idx))
 
@@ -260,8 +260,6 @@ class A2DSentencesDataset:
         return np.stack(frames)
 
     def get_clip(self, idx: int, rng: random.Random) -> ClipRecord:
-        import h5py
-
         video_id, instance_id, query, frame_idx = self.samples[idx]
         video = self._read_video(video_id)
         vid_len = len(video)
@@ -280,12 +278,13 @@ class A2DSentencesDataset:
         imgs = [video[i] for i in sample]
         h, w = imgs[0].shape[:2]
 
-        with h5py.File(self.mask_dir / video_id / f"{frame_idx:05d}.h5", "r") as f:
-            instances = [int(x) for x in np.atleast_1d(f["instance"][()])]
-            inst = instances.index(int(instance_id))
-            inst_masks = np.asarray(f["reMask"])
-            key = "heatBBox" if self.supervision == "box" else "heatPoint"
-            heatmaps = np.asarray(f[key], np.float32)
+        key = "heatBBox" if self.supervision == "box" else "heatPoint"
+        ann = read_datasets(self.mask_dir / video_id / f"{frame_idx:05d}.h5",
+                            ("instance", "reMask", key))
+        instances = [int(x) for x in np.atleast_1d(ann["instance"])]
+        inst = instances.index(int(instance_id))
+        inst_masks = ann["reMask"]
+        heatmaps = np.asarray(ann[key], np.float32)
         if inst_masks.ndim == 2:
             inst_masks = inst_masks[None]
         inst_masks = np.transpose(inst_masks, (0, 2, 1))  # stored transposed (a2d.py:186)

@@ -5,7 +5,10 @@ Per annotated frame and instance: the object centre (the maximum of the
 mask's distance transform), the ground-truth box, the sim model's point-
 and bbox-mode soft masks resized to the frame (optionally refined by the
 dense CRF); written as ``heatBBox``, ``heatPoint`` and ``centerPoint`` into
-an h5 file, which the train readers read.
+an h5 file, which the train readers read.  The files are written by
+``data/h5.py`` (numpy and the standard library), where the JAX package
+uses h5py: Ref-YTVOS gets a new file per frame, A2D's annotation file is
+rewritten with the maps added (``update_datasets``).
 
 The JAX package finds the centre with cv2
 (``minMaxLoc(distanceTransform(mask, DIST_L2, 5))``); ``object_center``
@@ -21,7 +24,7 @@ Usage:
         --densecl checkpoints/densecl_r101.pth [--crf]
 
 ``--device cpu`` runs on the CPU; without a GPU the default device raises.
-h5py is needed to write the files, cv2 to decode A2D's mp4 clips.
+cv2 decodes A2D's mp4 clips.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..data.h5 import read_datasets, update_datasets, write_datasets
 from ..data.imageio import read_palette, read_rgb
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, resize_linear
 
@@ -131,18 +135,12 @@ def generate_for_frame(model, image_rgb: np.ndarray, inst_masks: np.ndarray,
     return np.stack(heat_bbox), np.stack(heat_point), np.asarray(centers, np.float32)
 
 
-def _write(f, items) -> None:
-    for key, val in items:
-        if key in f:
-            del f[key]
-        f.create_dataset(key, data=val)
-
-
 def run_a2d(root: str, model, use_crf: bool) -> None:
     """Every annotated frame of A2D-Sentences: the maps go into the
-    frame's own annotation h5 (``reMask`` stored transposed)."""
+    frame's own annotation h5 (``reMask`` stored transposed), rewritten
+    with every other dataset kept bit for bit and its attributes (MATLAB's
+    ``MATLAB_class``, which no reader uses) dropped."""
     import cv2
-    import h5py
 
     root_p = Path(root)
     mask_dir = root_p / "text_annotations" / "a2d_annotation_with_instances"
@@ -159,22 +157,19 @@ def run_a2d(root: str, model, use_crf: bool) -> None:
             frames.append(cv2.cvtColor(fr, cv2.COLOR_BGR2RGB))
         cap.release()
         for hf in sorted(vdir.glob("*.h5")):
-            with h5py.File(hf, "r+") as f:
-                masks = np.asarray(f["reMask"])
-                if masks.ndim == 2:
-                    masks = masks[None]
-                masks = np.transpose(masks, (0, 2, 1))
-                hb, hp, cp = generate_for_frame(model, frames[int(hf.stem) - 1], masks,
-                                                use_crf)
-                _write(f, (("heatBBox", hb), ("heatPoint", hp), ("centerPoint", cp)))
+            masks = read_datasets(hf, ("reMask",))["reMask"]
+            if masks.ndim == 2:
+                masks = masks[None]
+            masks = np.transpose(masks, (0, 2, 1))
+            hb, hp, cp = generate_for_frame(model, frames[int(hf.stem) - 1], masks, use_crf)
+            update_datasets(hf, (("heatBBox", hb), ("heatPoint", hp), ("centerPoint", cp)),
+                            drop_attributes=True)
         print(f"done {vdir.name}", flush=True)
 
 
 def run_ytvos(root: str, model, use_crf: bool, split: str = "train") -> None:
     """Every annotated frame of Ref-YTVOS: one h5 per frame under
     ``<split>/AnnotationsWeakly/<video>/``, with the frame's object ids."""
-    import h5py
-
     root_p = Path(root) / split
     ann_dir = root_p / "Annotations"
     img_dir = root_p / "JPEGImages"
@@ -191,9 +186,9 @@ def run_ytvos(root: str, model, use_crf: bool, split: str = "train") -> None:
             img = read_rgb(img_dir / vdir.name / f"{png.stem}.jpg")
             masks = np.stack([(pal == o).astype(np.float32) for o in obj_ids])
             hb, hp, cp = generate_for_frame(model, img, masks, use_crf)
-            with h5py.File(out_dir / vdir.name / f"{png.stem}.h5", "w") as f:
-                _write(f, (("obj_ids", np.asarray(obj_ids)), ("heatBBox", hb),
-                           ("heatPoint", hp), ("centerPoint", cp)))
+            write_datasets(out_dir / vdir.name / f"{png.stem}.h5",
+                           (("obj_ids", np.asarray(obj_ids)), ("heatBBox", hb),
+                            ("heatPoint", hp), ("centerPoint", cp)))
         print(f"done {vdir.name}", flush=True)
 
 

@@ -5,11 +5,11 @@ resident-batch forward.  The port of ``scripts/bench_eval_e2e.py``.
     python -m ocpg_tpu_torch.scripts.bench_eval_e2e [--dataset jhmdb] [--videos 12] [--frames 8]
 
 ``--dataset a2d`` (the default) writes the JAX script's A2D-Sentences tree
-byte for byte (mp4 clips at the native 320 x 568, written with cv2; h5
-instance masks and heatmaps, which need h5py); ``--dataset jhmdb`` writes a
-JHMDB-Sentences tree (PNG frames at 240 x 320 and a ``puppet_mask.mat``
-per video; PIL and scipy), for hosts without h5py.  Without h5py the
-default raises and names the flag.
+(mp4 clips at the native 320 x 568, written with cv2, byte for byte; h5
+instance masks and heatmaps written by ``data/h5.py``, which h5py reads
+as the JAX script's); ``--dataset jhmdb`` writes a JHMDB-Sentences tree
+(PNG frames at 240 x 320 and a ``puppet_mask.mat`` per video; PIL and
+scipy).
 
 The production configuration (``a2d_r101_boxsup``, bf16, random weights
 from its seed) runs ``engine/evaluate.evaluate_a2d`` over the tree's clips
@@ -38,7 +38,6 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from .bench import sync_device
-from .bench_loader import require_h5py
 
 H, W = 320, 568          # A2D clips320H native resolution
 JHMDB_H, JHMDB_W = 240, 320
@@ -49,7 +48,8 @@ def build_a2d_tree(root: str, n_videos: int, n_frames: int) -> None:
     frames, the middle frame's h5 (an instance box mask, its heatmaps),
     one sentence."""
     import cv2
-    import h5py
+
+    from ..data.h5 import write_datasets
 
     rng = np.random.default_rng(7)
     os.makedirs(os.path.join(root, "Release", "clips320H"))
@@ -73,11 +73,9 @@ def build_a2d_tree(root: str, n_videos: int, n_frames: int) -> None:
         heat = np.zeros((1, H, W), np.float32)
         heat[0, y - 8:y + 88, x - 8:x + 128] = 0.8
         mid = f"{n_frames // 2:05d}.h5"
-        with h5py.File(os.path.join(inst_dir, mid), "w") as f:
-            f.create_dataset("instance", data=np.asarray([2]))
-            f.create_dataset("reMask", data=mask.T)
-            f.create_dataset("heatBBox", data=heat)
-            f.create_dataset("heatPoint", data=heat)
+        write_datasets(os.path.join(inst_dir, mid),
+                       (("instance", np.asarray([2])), ("reMask", mask.T),
+                        ("heatBBox", heat), ("heatPoint", heat)))
         ann_lines.append(f"{vid},2,the large moving object on the left")
         set_lines.append(f"{vid},x,x,x,x,x,x,x,1")
     with open(os.path.join(root, "text_annotations", "a2d_annotation.txt"), "w") as f:
@@ -142,7 +140,7 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser("ocpg_tpu_torch.scripts.bench_eval_e2e",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--dataset", default="a2d", choices=("a2d", "jhmdb"),
-                    help="a2d (the JAX tree: mp4 + h5, needs h5py) or jhmdb (PNG + .mat)")
+                    help="a2d (the JAX tree: mp4 + h5) or jhmdb (PNG + .mat)")
     ap.add_argument("--videos", type=int, default=12)
     ap.add_argument("--frames", type=int, default=8,
                     help="frames per video (the eval loader samples T=3 around the "
@@ -165,8 +163,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     args = get_args(argv)
     device = resolve_device(args.device)
-    if args.dataset == "a2d":
-        require_h5py("a2d", "--dataset jhmdb")
     root = tempfile.mkdtemp(prefix="e2eeval_")
     try:
         t0 = time.time()

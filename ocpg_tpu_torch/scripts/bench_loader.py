@@ -1,13 +1,14 @@
 """Host input-pipeline throughput: can ClipLoader feed the GPU's train
 step?  The port of ``scripts/bench_loader.py``.
 
-It writes a seeded tree on disk at real frame sizes (JPEG 720 x 1280, the
-JAX script's files byte for byte) and measures ``ClipLoader`` batches/s at
-the train shapes (T=3, canvas 512 x 640, compact wire off, as the JAX
-script) over worker counts.  ``--dataset ytvos`` (the default) is the JAX
-script's Ref-YouTube-VOS tree with h5 heatmaps and needs h5py; ``--dataset
-davis`` writes the same frames and masks as a Ref-DAVIS tree (no h5), for
-hosts without h5py.  Without h5py the default raises and names the flag.
+It writes a seeded tree on disk at real frame sizes (JPEG 720 x 1280; the
+JAX script's JPEG, PNG and JSON files byte for byte, its h5 files as h5py
+reads them) and measures ``ClipLoader`` batches/s at the train shapes
+(T=3, canvas 512 x 640, compact wire off, as the JAX script) over worker
+counts.  ``--dataset ytvos`` (the default) is the JAX script's
+Ref-YouTube-VOS tree with h5 heatmaps (written by ``data/h5.py``, no
+h5py); ``--dataset davis`` writes the same frames and masks as a
+Ref-DAVIS tree without them.
 
     python -m ocpg_tpu_torch.scripts.bench_loader [--dataset davis] [--workers 1 4 8]
         [--step_ms 540] [--out output/bench/LOADER_GPU.json]
@@ -34,16 +35,6 @@ import numpy as np
 DATASETS = ("ytvos", "davis")
 
 
-def require_h5py(dataset: str, flag: str = "--dataset davis") -> None:
-    """Raise, naming the flag to use, when ``dataset`` needs h5py and the
-    host has none."""
-    try:
-        import h5py  # noqa: F401
-    except ImportError as e:
-        raise RuntimeError(f"--dataset {dataset} writes h5 files and needs h5py, which this "
-                           f"host lacks; run with {flag}") from e
-
-
 def build_tree(root: str, videos: int, frames_per_video: int, h: int = 720, w: int = 1280,
                dataset: str = "ytvos") -> None:
     """The JAX script's train tree: per video one noise frame saved as
@@ -52,11 +43,10 @@ def build_tree(root: str, videos: int, frames_per_video: int, h: int = 720, w: i
     heatmaps (0.9 in the box), ``davis`` leaves them out."""
     from PIL import Image
 
+    from ..data.h5 import write_datasets
+
     if dataset not in DATASETS:
         raise ValueError(f"dataset {dataset!r} not in {DATASETS}")
-    if dataset == "ytvos":
-        require_h5py(dataset)
-        import h5py
     rng = np.random.default_rng(0)
     meta = {"videos": {}}
     for v in range(videos):
@@ -77,11 +67,9 @@ def build_tree(root: str, videos: int, frames_per_video: int, h: int = 720, w: i
             Image.fromarray(pal, mode="P").save(
                 f"{root}/train/Annotations/{video}/{name}.png")
             if dataset == "ytvos":
-                with h5py.File(f"{root}/train/AnnotationsWeakly/{video}/{name}.h5",
-                               "w") as f:
-                    f.create_dataset("obj_ids", data=np.asarray([1]))
-                    f.create_dataset("heatPoint", data=heat)
-                    f.create_dataset("heatBBox", data=heat)
+                write_datasets(f"{root}/train/AnnotationsWeakly/{video}/{name}.h5",
+                               (("obj_ids", np.asarray([1])), ("heatPoint", heat),
+                                ("heatBBox", heat)))
         meta["videos"][video] = {
             "frames": frames,
             "expressions": {"0": {"exp": "the big square", "obj_id": "1"}},
@@ -114,7 +102,7 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--num-frames", type=int, default=3)
     ap.add_argument("--workers", type=int, nargs="+", default=[1, 4, 8])
     ap.add_argument("--dataset", default="ytvos", choices=DATASETS,
-                    help="ytvos (h5 heatmaps, needs h5py) or davis (no h5)")
+                    help="ytvos (h5 heatmaps) or davis (no h5)")
     ap.add_argument("--step_ms", type=float, default=None,
                     help="a train step's ms: the loader must sustain 1000 / step_ms batches/s")
     ap.add_argument("--out", default="output/bench/LOADER_GPU.json")
@@ -126,8 +114,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     from ..data.datasets import build_dataset
     from ..data.loader import ClipLoader
 
-    if args.dataset == "ytvos":
-        require_h5py(args.dataset)
     root = tempfile.mkdtemp(prefix="loaderbench_")
     try:
         t0 = time.time()

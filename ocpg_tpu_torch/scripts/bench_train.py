@@ -23,8 +23,8 @@ batches ahead) from a seeded on-disk tree (``bench_loader.build_tree``:
 ``--e2e_videos`` videos of ``--e2e_frames_per_video`` 720 x 1280 frames),
 then up to 50 steps on one resident batch as the device-bound floor; writes
 ``output/bench/E2E_TRAIN_GPU.json`` (or ``--out``).  ``--dataset ytvos``
-(the default, the JAX script's tree) needs h5py; ``--dataset davis``
-writes a Ref-DAVIS tree for hosts without it.
+(the default, the JAX script's tree) has the h5 heatmaps; ``--dataset
+davis`` writes a Ref-DAVIS tree without them.
 
 ``--overfit N``: N steps on the one fixed batch and the loss curve;
 writes ``output/bench/TRAIN_GPU.json`` (or ``--out``).
@@ -69,7 +69,7 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--e2e_videos", type=int, default=4)
     ap.add_argument("--e2e_frames_per_video", type=int, default=24)
     ap.add_argument("--dataset", default="ytvos", choices=bench_loader.DATASETS,
-                    help="the --e2e tree: ytvos (h5 heatmaps, needs h5py) or davis")
+                    help="the --e2e tree: ytvos (h5 heatmaps) or davis")
     ap.add_argument("--overfit", type=int, default=0, metavar="N",
                     help="N optimizer steps on the one fixed batch; the loss trajectory")
     ap.add_argument("--json_out", default=None,
@@ -135,8 +135,6 @@ def run_e2e(args, cfg, device) -> Dict[str, Any]:
     from ..parallel.mesh import prefetch_to_mesh
     from ..utils.hw import nvidia_smi_line
 
-    if args.dataset == "ytvos":
-        bench_loader.require_h5py(args.dataset)
     root = tempfile.mkdtemp(prefix="e2ebench_")
     try:
         t0 = time.time()

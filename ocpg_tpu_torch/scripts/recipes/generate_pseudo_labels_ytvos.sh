@@ -3,7 +3,7 @@
 # the same flags and environment defaults, run through _launch.sh (one
 # GPU, or torchrun over NGPUS).
 # Offline pseudo-label generation for Ref-YouTube-VOS (the reference's
-# pre_process/generate_anno.py).  Reads and writes h5 files (needs h5py).
+# pre_process/generate_anno.py).  Reads and writes h5 files (ocpg_tpu_torch/data/h5.py, no h5py).
 # One process: the generator has no multi-GPU path.
 . "$(dirname "${BASH_SOURCE[0]}")/_launch.sh"
 python -m ocpg_tpu_torch.preprocess.generate_anno --dataset ytvos \

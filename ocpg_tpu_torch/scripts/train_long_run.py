@@ -31,9 +31,8 @@ expression each, the object a fixed box in the frame centre):
 
 The tree is ``bench_loader.build_tree``'s, as in the JAX script:
 ``--dataset ytvos`` (the default) writes a Ref-YouTube-VOS tree with h5
-heatmaps (needs h5py); ``--dataset davis`` a Ref-DAVIS tree of the same
-size, frames and masks without them (for hosts without h5py).  The record,
-written to ``--out``, says which ran.
+heatmaps; ``--dataset davis`` a Ref-DAVIS tree of the same size, frames
+and masks without them.  The record, written to ``--out``, says which ran.
 
 Usage:
     python -m ocpg_tpu_torch.scripts.train_long_run [--steps 2000] [--dataset davis]
@@ -340,7 +339,7 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--keep_params", default=None,
                     help="also save the final train state to this checkpoint directory")
     ap.add_argument("--dataset", default=d.dataset, choices=["ytvos", "davis"],
-                    help="ytvos: Ref-YouTube-VOS tree with h5 heatmaps (needs h5py); "
+                    help="ytvos: Ref-YouTube-VOS tree with h5 heatmaps; "
                          "davis: Ref-DAVIS tree of full palette-PNG masks")
     ap.add_argument("--out", default=d.out)
     ap.add_argument("--device", default=d.device, help="torch device (cpu for the tests)")

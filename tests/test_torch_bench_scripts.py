@@ -4,11 +4,13 @@ scripts of ``scripts/`` (loaded from their files, never edited, never
 run whole: they would write their records at the repo root).
 
 * The trees: ``bench_eval_e2e.build_a2d_tree`` and ``bench_loader.
-  build_tree`` write the JAX scripts' files byte for byte at the same
-  sizes (mp4 through cv2, h5 through h5py, PNG and JPEG through PIL);
-  the Ref-DAVIS and JHMDB trees the card uses instead read back through
-  the port's loaders; without h5py the default datasets raise and name
-  the flag.
+  build_tree`` write the JAX scripts' files at the same sizes: the mp4
+  (cv2), PNG and JPEG (PIL) and JSON files byte for byte, the h5 files
+  (the port's writer, where the JAX scripts use h5py) as h5py reads them:
+  names, dtypes, shapes and values (an HDF5 file's bytes belong to the
+  library that wrote it); the Ref-DAVIS and JHMDB trees read back
+  through the port's loaders; with h5py blocked the three drivers run
+  their default trees (Ref-YTVOS, A2D) at test sizes.
 * ``bench_serving.request_pool`` is the JAX script's pool (its statements
   run here on the same arguments).
 * ``bench_train_sweep``: the JAX sweep's defaults and grid order (its loop
@@ -34,6 +36,9 @@ import torch
 
 from ocpg_tpu.models import backbone_video_swin as jax_swin
 
+from ocpg_tpu_torch import config
+from ocpg_tpu_torch.config import OCPGConfig
+from ocpg_tpu_torch.data import loader as loader_module
 from ocpg_tpu_torch.data.datasets import build_dataset
 from ocpg_tpu_torch.data.loader import ClipLoader
 from ocpg_tpu_torch.scripts import (bench_eval_e2e, bench_loader, bench_serving,
@@ -44,6 +49,10 @@ from ocpg_tpu_torch.utils import profiling
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
+# a small model for the drivers' runs on the CPU
+TINY = dict(backbone="resnet50", enc_layers=1, dec_layers=2, dim_feedforward=64, num_queries=5,
+            text_layers=2, text_hidden=128, text_heads=4, text_ffn=256, text_vocab=1000,
+            text_max_pos=40)
 
 
 def jax_script(name):
@@ -76,23 +85,41 @@ def files_of(root):
             if p.is_file()}
 
 
+def h5py_datasets(path):
+    """Every dataset of an h5 file as h5py reads it: {name: (dtype, shape,
+    bytes)}."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {k: (f[k].dtype, f[k].shape, np.asarray(f[k][()]).tobytes()) for k in f}
+
+
+def assert_same_tree(got_root, want_root):
+    """The files of two trees: h5 files equal as h5py reads them (kept equal
+    byte for byte where the bytes agree), every other file byte for byte."""
+    want, got = files_of(want_root), files_of(got_root)
+    assert list(got) == list(want)
+    for k in want:
+        if k.endswith(".h5") and got[k] != want[k]:
+            assert h5py_datasets(got_root / k) == h5py_datasets(want_root / k), k
+        else:
+            assert got[k] == want[k], k
+    return want
+
+
 # ------------------------------------------------------------------ trees --
 def test_a2d_tree_is_the_jax_scripts_byte_for_byte(tmp_path):
     jax_script("bench_eval_e2e").build_a2d_tree(str(tmp_path / "jax"), 2, 4)
     bench_eval_e2e.build_a2d_tree(str(tmp_path / "port"), 2, 4)
-    want, got = files_of(tmp_path / "jax"), files_of(tmp_path / "port")
-    assert len(want) == 2 * 2 + 2
-    assert list(got) == list(want)
-    assert [k for k in want if got[k] != want[k]] == []
+    want = assert_same_tree(tmp_path / "port", tmp_path / "jax")
+    assert len(want) == 2 * 2 + 2 and sum(k.endswith(".h5") for k in want) == 2
 
 
 def test_loader_tree_is_the_jax_scripts_byte_for_byte(tmp_path):
     jax_script("bench_loader").build_tree(str(tmp_path / "jax"), 2, 3, 72, 128)
     bench_loader.build_tree(str(tmp_path / "port"), 2, 3, 72, 128)
-    want, got = files_of(tmp_path / "jax"), files_of(tmp_path / "port")
-    assert len(want) == 2 * 3 * 3 + 1
-    assert list(got) == list(want)
-    assert [k for k in want if got[k] != want[k]] == []
+    want = assert_same_tree(tmp_path / "port", tmp_path / "jax")
+    assert len(want) == 2 * 3 * 3 + 1 and sum(k.endswith(".h5") for k in want) == 2 * 3
     # the Ref-DAVIS tree: the same files without the h5 heatmaps
     bench_loader.build_tree(str(tmp_path / "davis"), 2, 3, 72, 128, dataset="davis")
     davis = files_of(tmp_path / "davis")
@@ -109,16 +136,29 @@ def test_davis_and_jhmdb_trees_read_back(tmp_path):
     assert len(ds) == 3
 
 
-def test_default_datasets_need_h5py_and_name_the_flag(monkeypatch, tmp_path):
+def test_default_datasets_run_without_h5py(monkeypatch, tmp_path):
+    """The three drivers' default trees (Ref-YTVOS with heatmaps, A2D) are
+    written and read by the port's h5 module: with h5py blocked each runs
+    at a test size."""
     monkeypatch.setitem(sys.modules, "h5py", None)      # import h5py raises ImportError
-    with pytest.raises(RuntimeError, match="--dataset davis"):
-        bench_loader.main(["--workers", "1", "--out", ""])
-    with pytest.raises(RuntimeError, match="--dataset jhmdb"):
-        bench_eval_e2e.main(["--device", "cpu", "--out", ""])
-    with pytest.raises(RuntimeError, match="--dataset davis"):
-        bench_train.main(["--device", "cpu", "--e2e", "2", "--out", ""])
-    with pytest.raises(RuntimeError, match="--dataset davis"):
-        bench_loader.build_tree(str(tmp_path / "t"), 1, 1)
+    rec = bench_loader.main(["--videos", "1", "--frames-per-video", "3", "--batches", "2",
+                             "--workers", "1", "--out", ""])
+    assert rec["dataset"] == "ytvos" and rec["value"] > 0
+    # the small model on 64 x 96 clips and canvases
+    monkeypatch.setattr(config, "a2d_r101_boxsup",
+                        lambda: OCPGConfig(**TINY, dataset_file="a2d", num_frames=3))
+    monkeypatch.setattr(bench_eval_e2e, "H", 64)
+    monkeypatch.setattr(bench_eval_e2e, "W", 96)
+    monkeypatch.setattr(loader_module, "canvas_for", lambda: (64, 96))
+    rec = bench_eval_e2e.main(["--device", "cpu", "--videos", "2", "--frames", "4",
+                               "--resident_iters", "1", "--out", ""])
+    assert rec["dataset"] == "a2d" and rec["clips"] == 2 and rec["metrics_finite"]
+    monkeypatch.setattr(bench_train, "train_config", lambda args: OCPGConfig(
+        **TINY, dataset_file="ytvos", num_frames=args.frames, compute_dtype="float32"))
+    rec = bench_train.main(["--device", "cpu", "--e2e", "2", "--e2e_videos", "1",
+                            "--e2e_frames_per_video", "3", "--e2e_workers", "1",
+                            "--frames", "2", "--height", "64", "--width", "96", "--out", ""])
+    assert rec["dataset"] == "ytvos" and rec["steps"] == 2 and np.isfinite(rec["last_loss"])
 
 
 # ---------------------------------------------------------------- serving --

@@ -9,6 +9,7 @@ else exact, the compact wire's uint8 frames and float16 heatmaps included
 (measured: the resizes are bit-exact against cv2, so every batch is).
 """
 import random
+import sys
 
 import numpy as np
 import pytest
@@ -86,6 +87,45 @@ def test_a2d_reader_matches_jax(tmp_path, split, supervision):
     assert_datasets_equal(port, jds.A2DSentencesDataset(str(root), 3, supervision, split),
                           seeds=range(4))
     assert port.get_clip(0, random.Random(0)).valid_indices is not None
+
+
+def records_of(ds, seeds):
+    """Every clip of a dataset under each seed, and the generator's state after."""
+    out = []
+    for idx in range(len(ds)):
+        for seed in seeds:
+            rng = random.Random(seed * 100 + idx)
+            out.append((ds.get_clip(idx, rng), rng.getstate()))
+    return out
+
+
+def assert_reads_without_h5py(monkeypatch, port_dataset, jax, seeds):
+    """The JAX reader's clips (read with h5py), then the port's with h5py
+    blocked (h5py itself imports lazily, so the JAX reader reads first)."""
+    want = records_of(jax, seeds)
+    monkeypatch.setitem(sys.modules, "h5py", None)      # import h5py raises ImportError
+    got = records_of(port_dataset(), seeds)
+    assert len(got) == len(want) > 0
+    for (g, gs), (w, ws) in zip(got, want):
+        assert_records_equal(g, w)
+        assert gs == ws
+
+
+@pytest.mark.parametrize("supervision", ["box", "point"])
+def test_ytvos_reader_without_h5py_matches_jax(ytvos_root, supervision, monkeypatch):
+    """The port reads the h5py-written heatmaps with its own h5 module."""
+    assert_reads_without_h5py(
+        monkeypatch, lambda: pds.YTVOSDataset(str(ytvos_root), 3, supervision),
+        jds.YTVOSDataset(str(ytvos_root), 3, supervision), (0, 1))
+
+
+@pytest.mark.parametrize("split,supervision", [("train", "box"), ("train", "point"),
+                                               ("val", "box")])
+def test_a2d_reader_without_h5py_matches_jax(tmp_path, split, supervision, monkeypatch):
+    root = fx.write_a2d_tree(tmp_path, split=split)
+    assert_reads_without_h5py(
+        monkeypatch, lambda: pds.A2DSentencesDataset(str(root), 3, supervision, split),
+        jds.A2DSentencesDataset(str(root), 3, supervision, split), range(4))
 
 
 def test_jhmdb_reader_matches_jax(tmp_path):

@@ -2,10 +2,10 @@
 has no JAX, and the port keeps its own copies of what it needs from
 ocpg_tpu.  The data path, the CLIs and tools, the eval engine, the
 metrics, the pseudo-label generator, the whole-system scripts, the
-measurement drivers and the utilities import cv2, PIL and h5py only in
-the calls that need them (and
-transformers only where a tokenizer directory is loaded), so importing
-them loads none of them (the inference CLIs run without cv2 unless
+measurement drivers and the utilities import cv2 and PIL only in the
+calls that need them (and transformers only where a tokenizer directory
+is loaded) and h5py nowhere (``data/h5.py`` reads and writes the h5
+files), so importing them loads none of them (the inference CLIs run without cv2 unless
 ``--visualize``: tests/test_torch_infer_cli.py).  Each
 import runs in a fresh interpreter, so this process's own imports cannot
 hide one."""
@@ -40,6 +40,7 @@ def test_port_has_the_slice_modules():
                  "data.transforms", "engine.infer", "engine.optim", "engine.train",
                  "utils.weights", "utils.box_ops", "models.pairwise", "data.loader",
                  "engine.checkpoint", "data.categories", "data.imageio", "data.datasets",
+                 "data.h5",
                  "data.refer", "data.refexp", "native.io", "parallel.mesh", "cli.train",
                  "utils.logging", "utils.profiling", "evaluation", "evaluation.rle",
                  "evaluation.a2d_metrics", "evaluation.refexp_metrics",
@@ -62,7 +63,7 @@ MEASUREMENT = ("scripts.bench", "scripts.bench_train", "scripts.bench_serving",
 # modules of the data path, the CLIs and tools, the eval engine, the
 # metrics, the pseudo-label generator, the scripts and the utilities
 DATA_PATH = ["ocpg_tpu_torch." + m for m in (
-    "cli.train", "data.datasets", "data.loader", "data.transforms", "data.refexp",
+    "cli.train", "data.datasets", "data.h5", "data.loader", "data.transforms", "data.refexp",
     "data.refer", "data.imageio", "native.io", "parallel.mesh", "parallel.distributed",
     "parallel.dryrun", "utils.logging",
     "utils.profiling", "utils.weights", "utils.box_ops", "evaluation",

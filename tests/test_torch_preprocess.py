@@ -14,10 +14,14 @@ the JAX package's on the CPU.
 * The CRF, window and exact, binary and multi-label, within 1e-5 of JAX's.
 * ``generate_for_frame`` (with and without the CRF) and the h5 files of
   ``run_ytvos`` and ``run_a2d`` on small trees within 1e-4 of JAX's,
-  centres and object ids equal; ``main --densecl`` on a replica ResNet-101
-  state dict writes what the converted weights give.
+  centres and object ids equal; ``main`` for both datasets with h5py
+  blocked (the port's ``data/h5.py`` writes) read back by h5py as JAX's
+  files; ``main --densecl`` on a replica ResNet-101 state dict writes what
+  the converted weights give.
 """
+import functools
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -244,6 +248,42 @@ def test_run_writes_the_h5_files_jax_writes(dataset, models, tmp_path):
         got, want = _h5(p), _h5(tmp_path / "jax" / p.relative_to(tmp_path / "port"))
         assert got.keys() == want.keys() and {"heatBBox", "heatPoint", "centerPoint"} <= set(got)
         for k in got:
+            if k in ("heatBBox", "heatPoint"):
+                np.testing.assert_allclose(got[k], want[k], atol=HEAT_ATOL, err_msg=k)
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("dataset", ["ytvos", "a2d"])
+def test_main_without_h5py_writes_what_jax_writes(dataset, models, monkeypatch, tmp_path):
+    """``main`` with h5py blocked (the port writes through its own h5
+    module; the A2D files it rewrites were written by h5py): h5py reads the
+    files back as the JAX generator's, on the same ResNet-50 weights."""
+    _, jmodel, jparams = models
+    torch.save({"state_dict": resnet_body_state_dict((3, 4, 6, 3), seed=0)},
+               tmp_path / "r50.pth")
+    if dataset == "ytvos":
+        src = fx.write_ytvos_tree(tmp_path / "src", n_frames=3, h=H, w=W, second_object=True)
+        files = "train/AnnotationsWeakly/vid0/*.h5"
+    else:
+        src = fx.write_a2d_tree(tmp_path / "src", h=H, w=W)
+        files = "text_annotations/a2d_annotation_with_instances/vidA/*.h5"
+    shutil.copytree(src, tmp_path / "jax")
+    shutil.move(src, tmp_path / "port")
+    getattr(jax_gen, f"run_{dataset}")(str(tmp_path / "jax"), jmodel, jparams, False)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)            # import h5py raises ImportError
+        m.setattr(sim_model, "init_sim_model",
+                  functools.partial(sim_model.init_sim_model, "resnet50"))
+        generate_anno.main(["--dataset", dataset, "--root", str(tmp_path / "port"),
+                            "--densecl", str(tmp_path / "r50.pth"), "--device", "cpu"])
+    paths = sorted((tmp_path / "port").glob(files))
+    assert len(paths) == (3 if dataset == "ytvos" else 1)
+    for p in paths:
+        got, want = _h5(p), _h5(tmp_path / "jax" / p.relative_to(tmp_path / "port"))
+        assert got.keys() == want.keys() and {"heatBBox", "heatPoint", "centerPoint"} <= set(got)
+        for k in got:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
             if k in ("heatBBox", "heatPoint"):
                 np.testing.assert_allclose(got[k], want[k], atol=HEAT_ATOL, err_msg=k)
             else:
