@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``ocpg_tpu_torch``) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases NAME ...]
 
-It takes no arguments and runs every phase; each fails the run (non-zero
-exit, no result line) if it goes wrong:
+With no arguments it runs every phase; each fails the run (non-zero exit,
+no result line) if it goes wrong.  ``--phases`` runs only the named ones
+(``--phases swin_t recipes``, say), in this order, and prints no result
+lines:
 
 1. build      -- compile every CUDA kernel of the port from
                  ocpg_tpu_torch/ops/csrc (one nvcc per source, all started
@@ -32,7 +34,10 @@ exit, no result line) if it goes wrong:
                  ragged last row tile, whose rows are also held apart) with
                  and without the SW-MSA mask, at a 2D Swin (n = 49) call and
                  at its edges (n = 392, an odd n = 13), at the stage-0 call
-                 infer_davis makes at clip_len 36 (bw = 1610, n = 392), its autograd
+                 infer_davis makes at clip_len 36 (bw = 1610, n = 392), at
+                 Video Swin-T's stage-0 and stage-3 calls (3 and 24 heads)
+                 of the A2D 1 x 5 x 384 x 640 forward and of phase swin_t's
+                 train step, its autograd
                  Function's gradients against autograd through the plain
                  version (serving stages 0 and 3, train stage 0).  Each
                  kernel's device time (the launches queue behind a sleep
@@ -89,11 +94,20 @@ exit, no result line) if it goes wrong:
                  frozen text encoder bit-identical; ms/step, peak memory,
                  and a profile with K7's forward and its plain recompute
                  backward (the kernels under the Function's backward).
-10. resume    -- two train steps of the small model, a checkpoint save and a
+10. swin_t    -- Video Swin-T at its widths: the full-width
+                 a2d_videoswin_tiny (embed 96, depths 2/2/6/2, heads
+                 3/6/12/24) from its seeded init, one float32 train step on
+                 an A2D batch (2 x 192 x 256, valid_indices) on the card
+                 against the CPU (TF32 off): matched queries identical, every
+                 loss and grad_norm within 1e-3 relative, K1 and K2 8 times,
+                 K7 12 times at the calls phase kernel holds; then one bf16
+                 A2D eval forward at 1 x 5 x 384 x 640 (path swin_t_a2d: K7
+                 12, K1 8).
+11. resume    -- two train steps of the small model, a checkpoint save and a
                  restore into a fresh model, optimizer and step: state dicts
                  and generator state bit-identical to the saved ones, the
                  next step's losses within 1e-3 relative on both sides.
-11. train_cli -- the port's train CLI (``ocpg_tpu_torch.cli.train
+12. train_cli -- the port's train CLI (``ocpg_tpu_torch.cli.train
                  --dataset_file ytvos``) in this process, as a user runs it:
                  the full-width ytvos_r101_boxsup model (ResNet-101, bf16,
                  canvas 512 x 640, B=1, T=3) on a seeded Ref-YouTube-VOS tree
@@ -111,7 +125,7 @@ exit, no result line) if it goes wrong:
                  ms), peak memory; ms per ``read_datasets`` of one frame's
                  720 x 1280 heatPoint with 1 and 3 instances beside the PIL
                  decode of its JPEG.
-12. multi_gpu -- data parallelism (``ocpg_tpu_torch/parallel``) on the one
+13. multi_gpu -- data parallelism (``ocpg_tpu_torch/parallel``) on the one
                  card: (a) an NCCL process group of world size 1 in this
                  process, the full-width ytvos_r101_boxsup train step (B=1,
                  T=3, 512 x 640, bf16) through TrainStep(mesh) against the
@@ -138,7 +152,7 @@ exit, no result line) if it goes wrong:
                  ranks for 2 steps of a global batch of 2 on a 4-frame
                  Ref-DAVIS tree: K1 and K2 8 a step on each rank, only rank
                  0 writes log.txt (with the global batch) and checkpoints.
-13. eval_cli  -- the port's A2D/JHMDB eval CLI (``ocpg_tpu_torch.cli.evaluate``)
+14. eval_cli  -- the port's A2D/JHMDB eval CLI (``ocpg_tpu_torch.cli.evaluate``)
                  in this process at full width (R101, bf16) with its
                  defaults (device postprocess, f32 wire), batches of 2 with a
                  padded tail: on a seeded A2D-Sentences tree
@@ -153,13 +167,13 @@ exit, no result line) if it goes wrong:
                  in the metrics, one forward with its device postprocess
                  (device ms) and the packed mask wire beside the float32
                  canvas.
-14. pretrain_cli -- the RefCOCO pretrain CLI (``cli.pretrain``) at full width,
+15. pretrain_cli -- the RefCOCO pretrain CLI (``cli.pretrain``) at full width,
                  T = 1, batches of 2, one epoch of a seeded COCO tree (8 train
                  and 4 val JPEGs at 480 x 640) with its val: K1 and K2 8 per
                  step, K1 8 per val forward, every step's loss finite, the
                  refcoco_{bbox,segm,coco_bbox}_* entries of log.txt finite,
                  the checkpoint at the last step; steps/s, peak memory.
-15. infer_davis -- the Ref-DAVIS inference CLI (``cli.infer_davis``) with the
+16. infer_davis -- the Ref-DAVIS inference CLI (``cli.infer_davis``) with the
                  Video Swin-B backbone (davis_videoswin_base, full width) at
                  its defaults (clip_len 36, exact canvases, f32) on a seeded
                  valid split (one video of 36 frames at 720 x 1280, two
@@ -167,7 +181,7 @@ exit, no result line) if it goes wrong:
                  annotator: K1 8 and K7 24 per dispatch, every palette PNG at
                  720 x 1280, both CSVs, J&F finite; requests/s and the share
                  of the run outside the engine.
-16. infer_ytvos -- the Ref-YTVOS inference CLI (``cli.infer_ytvos``, R101 at
+17. infer_ytvos -- the Ref-YTVOS inference CLI (``cli.infer_ytvos``, R101 at
                  full width) on a seeded valid split (12- and 4-frame videos
                  at 720 x 1280, and a 6-frame video of two unlike scenes that
                  a probe run picked because their best queries differ),
@@ -178,7 +192,7 @@ exit, no result line) if it goes wrong:
                  the query forced, every PNG of both runs, the two runs
                  agreeing on at least 99% of pixels (share and re-run chunks
                  recorded).
-17. pretrained -- a reference-layout checkpoint at full width
+18. pretrained -- a reference-layout checkpoint at full width
                  (tests/torch_replica.py's OCPGReplica with ResNet-101 and a
                  RoBERTa-base config made here, seeded, saved as a .pth):
                  ``load_pretrained_torch`` into the float32 ytvos_r101_boxsup
@@ -195,7 +209,7 @@ exit, no result line) if it goes wrong:
                  class heads is the checkpoint's); the toy vocabulary's ids
                  on this machine's transformers equal to TOY_IDS; load and
                  conversion seconds, the forward's device ms, peak memory.
-18. pseudo_labels -- the generator's --densecl path at full width: the
+19. pseudo_labels -- the generator's --densecl path at full width: the
                  replica's ResNet-101 body through ``convert_resnet`` into
                  the sim model on the card and on the CPU,
                  ``generate_for_frame`` on a seeded 320 x 576 frame with 3
@@ -212,13 +226,37 @@ exit, no result line) if it goes wrong:
                  rewrites its annotation h5 in place, ``instance`` and
                  ``reMask`` bit-identical, the three maps added and equal to
                  ``generate_for_frame``'s; seconds per frame of each run.
-19. demo_e2e  -- the whole product (``ocpg_tpu_torch.scripts.
+20. recipes   -- the 21 run recipes of ocpg_tpu_torch/scripts/recipes that
+                 no other phase runs (A2D-Sentences training with ResNet-101
+                 under box, point and full supervision and the boxinst,
+                 boxlevelset, boxvos and partialsup variants, the frozen
+                 video encoder at batch 4, Video Swin-B with --use_checkpoint
+                 and Swin-T; Ref-YTVOS full and point supervision, Swin-B,
+                 Swin-T from scratch and at batch 2; joint; pretrain on all
+                 three RefCOCO sets as 3-frame sequences; the Swin-T A2D
+                 eval and the Swin-B Ref-YTVOS inference of the checkpoints
+                 the phase just trained), each through its own calls
+                 recorded under bash with NGPUS=1, with --output_dir a
+                 directory of the phase and --epochs 1, in this process at
+                 full width, on trees sized to two steps an epoch at the
+                 recipe's own batch (the A2D ones written by
+                 bench_eval_e2e.build_a2d_tree and labelled by
+                 generate_pseudo_labels_a2d.sh's call): K1 8 per forward,
+                 K2 8 per step, K7 12 (Swin-T) or 24 (Swin-B) per forward
+                 and again per step with --use_checkpoint; every loss and
+                 grad_norm finite; the pairwise loss with boxinst and boxvos
+                 alone; the first batch's weak masks on the object; the
+                 backbone bit-identical with --freeze_video_encoder; the eval
+                 metrics finite and the PNGs written; only the two
+                 checkpoints the test recipes read are written to disk;
+                 seconds and peak memory per recipe.
+21. demo_e2e  -- the whole product (``ocpg_tpu_torch.scripts.
                  demo_synthetic_e2e``) at a shortened length: random-weight
                  ``cli.infer_davis`` and J&F, ``cli.train`` (the small R50
                  model, 2+2 layers, bf16, 128 x 160, 96 steps), trained
                  inference and J&F: K2 4 per step, K1 4 per step and per
                  dispatch, the loss falls, every J&F finite in [0, 1].
-20. long_run  -- ``ocpg_tpu_torch.scripts.train_long_run`` (its default
+22. long_run  -- ``ocpg_tpu_torch.scripts.train_long_run`` (its default
                  Ref-YouTube-VOS tree with h5 heat maps) at 60 steps of the
                  full-width ytvos_r101_boxsup model fed by
                  ClipLoader(compact=True) from 6 videos x 16 frames at 720 x
@@ -228,18 +266,18 @@ exit, no result line) if it goes wrong:
                  first two within 1e-3 relative (the whole replay's difference
                  and the two replays' spread recorded), val J and F at steps 1
                  and 60; K1 and K2 8 per step, K1 8 per val forward.
-21. memory_envelope -- ``ocpg_tpu_torch.scripts.memory_envelope --quick``:
+23. memory_envelope -- ``ocpg_tpu_torch.scripts.memory_envelope --quick``:
                  peak allocated and reserved memory of the R101 train rows
                  B=1 and 2 (T=3, 512 x 640, two steps each) and eval rows T=5
                  and 36 (384 x 640), every row within the card's memory.
-22. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
+24. std_op     -- the standard-layout MSDA op ``ms_deform_attn_fast`` once
                  forward and backward at the train encoder call: K3 and K4
                  launched once each, the gradients finite.
-23. msda_bench -- the port's MSDA kernel bench in this process
+25. msda_bench -- the port's MSDA kernel bench in this process
                  (``ocpg_tpu_torch.scripts.bench_msda_kernel``, variants cm
                  r4 fk sep, --bwd, eval shapes, checked against sep): every
                  check within 2e-2, K1, K2, K5 and K6 each launched.
-24. bench      -- the port's bench (``ocpg_tpu_torch.scripts.bench``, the
+26. bench      -- the port's bench (``ocpg_tpu_torch.scripts.bench``, the
                  root bench.py's stages: the A2D R101 and Swin-B eval
                  forwards at 1 x 5 x 384 x 640 and the R101 train step at
                  B=1 and B=2, T=3, 512 x 640, bf16) in this process with its
@@ -249,7 +287,7 @@ exit, no result line) if it goes wrong:
                  GFLOP above 0; per stage K1 8 per forward and per step, K2
                  8 per step, K7 24 per Swin-B forward; the R101 forward's
                  dense GFLOP beside the JAX bench's HLO count.
-25. bench_scripts -- the measurement drivers of ocpg_tpu_torch/scripts at
+27. bench_scripts -- the measurement drivers of ocpg_tpu_torch/scripts at
                  their shortest: bench_train (timing with --trace, then
                  --e2e on its default Ref-YTVOS tree), bench_serving,
                  bench_eval_e2e (its default A2D tree), bench_loader (its
@@ -260,18 +298,18 @@ exit, no result line) if it goes wrong:
                  profile_bench: each record's keys and values, launches per
                  forward and step as above.
 
-Every launch counter (K1-K7) is reset just before each of the phases
-serve, a2d, train, swin_serve, swin_a2d, swin_train (each of its two runs),
-resume, train_cli (each of its two runs), multi_gpu (each run and rank:
-the ranks count in their own processes and return their counts, which
-are summed), eval_cli (each of its three runs),
-pretrain_cli, infer_davis, infer_ytvos (each of its two runs), pretrained
-(its forward, each infer_ytvos run and the train run), pseudo_labels
-(generate_for_frame, each generate_anno.main run and the train run),
-demo_e2e, long_run, memory_envelope, std_op, msda_bench, bench (each of
-its four stages, by the bench itself) and bench_scripts (each script)
-runs its path and read just after; the
-``kernels`` line gives each kernel's count on every path.
+Every launch counter (K1-K7) is reset just before each of the phases serve,
+a2d, train, swin_serve, swin_a2d, swin_train (each of its two runs), swin_t
+(its card step and its A2D forward), resume, train_cli (each of its two
+runs), multi_gpu (each run and rank: the ranks count in their own processes
+and return their counts, which are summed), eval_cli (each of its three
+runs), pretrain_cli, infer_davis, infer_ytvos (each of its two runs),
+pretrained (its forward, each infer_ytvos run and the train run),
+pseudo_labels (generate_for_frame, each generate_anno.main run and the train
+run), recipes (the trees' labelling and each recipe), demo_e2e, long_run,
+memory_envelope, std_op, msda_bench, bench (each of its four stages, by the
+bench itself) and bench_scripts (each script) runs its path and read just
+after; the ``kernels`` line gives each kernel's count on every path.
 
 It imports nothing of JAX.  The last three lines of its output are the
 card's name and power limit (nvidia-smi), one JSON object listing the
@@ -295,8 +333,8 @@ import time
 import numpy as np
 import torch
 
-from ocpg_tpu_torch.config import (OCPGConfig, a2d_r101_boxsup, davis_videoswin_base,
-                                   ytvos_r101_boxsup)
+from ocpg_tpu_torch.config import (OCPGConfig, a2d_r101_boxsup, a2d_videoswin_tiny,
+                                   davis_videoswin_base, ytvos_r101_boxsup)
 from ocpg_tpu_torch.data.synthetic import synthetic_batch
 from ocpg_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ocpg_tpu_torch.engine.checkpoint import CheckpointManager
@@ -349,6 +387,13 @@ SWIN_B_BLOCKS = 24
 SWIN_TRAIN_T = 3
 SWIN_TRAIN_GRIDS = ((128, 160), (64, 80), (32, 40), (16, 20))
 SWIN_TRAIN_WINDOWS = (437, 120, 30, 9)
+# Video Swin-T (a2d_videoswin_tiny): blocks (depths 2/2/6/2) and heads of
+# 32 channels a stage; phase swin_t's train step is one 2 x 192 x 256 clip,
+# whose stage-0 and stage-3 grids (stride 4, then 2 a stage) are these
+SWIN_T_BLOCKS = 12
+SWIN_T_HEADS = (3, 6, 12, 24)
+SWIN_T_STEP_T, SWIN_T_STEP_SIZE = 2, (192, 256)
+SWIN_T_STEP_GRIDS = ((48, 64), (6, 8))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -667,6 +712,17 @@ def wattn_held(got, want, scale, dtype):
     return err, excess <= 2e-2, "2e-2 + 2e-2 x |out|"
 
 
+def swin_t_calls():
+    """Video Swin-T's stage-0 and stage-3 K7 calls (name, bw, heads, n,
+    SW-MSA mask): the A2D 1 x 5 x 384 x 640 forward (the serving grids,
+    3 and 24 heads) and phase swin_t's train step."""
+    calls = [(f"swin-T stage {s}",) + swin_call(SWIN_GRIDS[s], SWIN_T_HEADS[s])
+             for s in (0, 3)]
+    return calls + [(f"swin-T train stage {s}",) + swin_call(grid, SWIN_T_HEADS[s],
+                                                             frames=SWIN_T_STEP_T)
+                    for s, grid in zip((0, 3), SWIN_T_STEP_GRIDS)]
+
+
 def wattn_kernel_checks(results):
     """K7 at the four Video Swin-B serving calls (n = 245, dh = 32), the
     four Swin-B train calls (n = 147), a 2D Swin call (n = 49) and the
@@ -699,6 +755,7 @@ def wattn_kernel_checks(results):
     calls.append(("swin-B stage 0, 36 frames (infer_davis)",)
                  + swin_call(SWIN_GRIDS[0], SWIN_HEADS[0], frames=36))
     calls.append(("odd window 1x1x13",) + swin_call((2, 26), 2, window=(1, 1, 13), frames=1))
+    calls += swin_t_calls()
     report = {}
     for name, bw, heads, n, mask_np in calls:
         for masked in (True, False):
@@ -785,6 +842,7 @@ def wattn_kernel_checks(results):
     results["wattn_report"] = report
     results["wattn_infer_davis"] = next(v for k, v in report.items()
                                         if k.startswith("swin-B stage 0, 36 frames"))
+    results["wattn_swin_t"] = {k: v for k, v in report.items() if k.startswith("swin-T")}
 
 
 # -------------------------------------------------------------------- card --
@@ -940,26 +998,53 @@ def card_evaluate_a2d(inputs):
         f"{flips} differ, {in_band} within 1e-3 of logit 0; launches {counts}")
 
 
-def card_train_step(cfg, frames, k7):
-    """The small model's train step (dropout and stochastic depth off) on
-    the card against the CPU: matched queries identical, every loss and
+@contextlib.contextmanager
+def k7_calls():
+    """The (bw, heads, n) of every K7 launch while the block runs."""
+    launch, calls = wattn._launch, []
+
+    def record(q, k, v, bias, mask):
+        calls.append((q.shape[0], q.shape[2], q.shape[1]))
+        return launch(q, k, v, bias, mask)
+
+    wattn._launch = record
+    try:
+        yield calls
+    finally:
+        wattn._launch = launch
+
+
+def card_train_step(cfg, frames, k7, size=(128, 192), noise=True, valid_frame=None):
+    """The model's train step (dropout and stochastic depth off) on the card
+    against the CPU, from the same weights (``noise``: seeded noise in every
+    weight, else the seeded init): matched queries identical, every loss and
     grad_norm within 1e-3 relative, K1 and K2 each launched once per
-    transformer layer, K7 ``k7`` times."""
+    transformer layer, K7 ``k7`` times.  ``valid_frame``: an A2D batch whose
+    annotated frame it is (the targets that frame's alone).  Returns the
+    card step's launches and K7's calls."""
     label = (f"{cfg.backbone}{' use_checkpoint' if cfg.use_checkpoint else ''}"
              f"{' pairwise' if cfg.pairwise_loss else ''} T={frames}")
-    batch = synthetic_batch(np.random.default_rng(5), batch=1, frames=frames, height=128,
-                            width=192, text_len=8, vocab_size=cfg.text_vocab)
+    batch = synthetic_batch(np.random.default_rng(5), batch=1, frames=frames, height=size[0],
+                            width=size[1], text_len=8, vocab_size=cfg.text_vocab,
+                            with_valid_indices=valid_frame is not None)
+    if valid_frame is not None:
+        batch["valid_indices"][:] = valid_frame
+        batch["targets"] = {k: (v[:, valid_frame:valid_frame + 1]
+                                if v.ndim > 1 and k != "size" else v)
+                            for k, v in batch["targets"].items()}
     cpu_model = build_model(cfg, device="cpu")
-    perturb(cpu_model, seed=4)
+    if noise:
+        perturb(cpu_model, seed=4)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     args = [torch.from_numpy(batch[k]) for k in ("samples", "samples_mask", "text_ids",
                                                  "text_mask")]
     args.append(torch.from_numpy(batch["targets"]["size"]))
+    vidx = None if valid_frame is None else torch.from_numpy(batch["valid_indices"])
     targets = {k: torch.from_numpy(v) for k, v in batch["targets"].items()}
     matched = []
     for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
         with torch.no_grad():
-            out = model(*(a.to(dev) for a in args),
+            out = model(*(a.to(dev) for a in args), None if vidx is None else vidx.to(dev),
                         targets={k: v.to(dev) for k, v in targets.items()}, train=True)
         matched.append(out["matched"].cpu())
     check(torch.equal(matched[0], matched[1]),
@@ -967,9 +1052,11 @@ def card_train_step(cfg, frames, k7):
     metrics = []
     for model in (cpu_model, gpu_model):
         step = make_train_step(model, criterion_config(cfg), build_weight_dict(cfg),
-                               build_optimizer(model, cfg), deterministic=True)
+                               build_optimizer(model, cfg), deterministic=True,
+                               has_valid_indices=valid_frame is not None)
         reset_counts()
-        metrics.append(step(batch))
+        with k7_calls() as calls:
+            metrics.append(step(batch))
     torch.cuda.synchronize()
     counts = read_counts()
     layers = cfg.enc_layers + cfg.dec_layers
@@ -985,6 +1072,39 @@ def card_train_step(cfg, frames, k7):
     log(f"card train step {label}: matched {matched[0].tolist()} on both; {len(want)} "
         f"metrics, max relative |card - cpu| {worst:.2e} (limit 1e-3); loss "
         f"{got['loss']:.4f}, grad_norm {got['grad_norm']:.4f}; launches {counts}")
+    return counts, calls
+
+
+# ------------------------------------------------------------------ swin_t --
+def phase_swin_t(results):
+    """Video Swin-T at its own widths: the full-width ``a2d_videoswin_tiny``
+    (embed 96, depths 2/2/6/2, 3/6/12/24 heads; RoBERTa-base, 4+4 layers)
+    from its seeded init, one float32 train step on an A2D batch (one
+    2 x 192 x 256 clip, valid_indices, TF32 off) on the card against the
+    CPU: matched queries identical, every loss and grad_norm within 1e-3
+    relative, K1 and K2 8 times, K7 12 times, at the (bw, heads, n) phase
+    kernel held.  Then one bf16 A2D eval forward at 1 x 5 x 384 x 640 (K7
+    12, K1 8) and its time."""
+    cfg = a2d_videoswin_tiny()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        counts, calls = card_train_step(cfg.replace(compute_dtype="float32"), SWIN_T_STEP_T,
+                                        SWIN_T_BLOCKS, size=SWIN_T_STEP_SIZE, noise=False,
+                                        valid_frame=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+    results["paths"]["swin_t_step"] = counts
+    # stage 0 (3 heads) and stage 3 (24 heads) of the step
+    held = {c for c in calls if c[1] in (SWIN_T_HEADS[0], SWIN_T_HEADS[3])}
+    want = {(bw, heads, n) for name, bw, heads, n, _ in swin_t_calls() if "train" in name}
+    check(held == want, f"swin_t: the step's stage-0 and stage-3 K7 calls {sorted(held)} "
+                        f"are not those phase kernel holds {sorted(want)}")
+    log(f"swin_t: card vs CPU float32 step of {cfg.backbone} in {time.perf_counter() - t0:.1f} "
+        f"s (two model copies); K7 calls (bw, heads, n) {sorted(set(calls))}")
+    a2d_path(results, "swin_t_a2d", cfg, SWIN_T_BLOCKS)
 
 
 # ------------------------------------------------------------------- serve --
@@ -2105,37 +2225,42 @@ def native_rle() -> bool:
 COCO_H, COCO_W, COCO_TRAIN, COCO_VAL = 480, 640, 8, 4
 
 
-def write_coco_tree(root):
+def write_coco_tree(root, datasets=(("refcoco", COCO_TRAIN, COCO_VAL),)):
     """A COCO root of seeded PIL JPEGs (train2014/) with
-    instances_refcoco_{train,val}.json: one referred ellipse per image, its
-    polygon and box (tests/torch_data_fixtures.py::write_coco_tree's schema)."""
+    instances_<name>_{train,val}.json for each (name, train images, val
+    images) of ``datasets`` (no val file for 0): one referred ellipse per
+    image, its polygon and box (tests/torch_data_fixtures.py::write_coco_tree's
+    schema)."""
     from PIL import Image
 
     rng = np.random.default_rng(13)
     os.makedirs(os.path.join(root, "train2014"))
     yy, xx = np.mgrid[0:COCO_H, 0:COCO_W]
-    for split, n in (("train", COCO_TRAIN), ("val", COCO_VAL)):
-        images, anns = [], []
-        for i in range(n):
-            name = f"{split}_{i}.jpg"
-            cy, cx = rng.uniform(150, 330), rng.uniform(150, 490)
-            ry, rx = rng.uniform(60, 120), rng.uniform(60, 140)
-            img = 50 + 150 * rng.random((COCO_H, COCO_W, 3))
-            obj = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
-            img[obj] = 0.4 * img[obj] + [130, 40, 40]
-            Image.fromarray(img.astype(np.uint8)).save(
-                os.path.join(root, "train2014", name), quality=90)
-            angles = np.linspace(0, 2 * np.pi, 24, endpoint=False)
-            poly = np.stack([cx + rx * np.cos(angles), cy + ry * np.sin(angles)], 1)
-            images.append({"id": i, "file_name": name, "height": COCO_H, "width": COCO_W,
-                           "caption": f"the red {('oval', 'blob')[i % 2]} in the picture"})
-            anns.append({"id": i, "image_id": i, "category_id": 1,
-                         "bbox": [cx - rx, cy - ry, 2 * rx, 2 * ry],
-                         "segmentation": [poly.ravel().tolist()], "area": float(obj.sum()),
-                         "iscrowd": 0})
-        with open(os.path.join(root, f"instances_refcoco_{split}.json"), "w") as f:
-            json.dump({"images": images, "annotations": anns,
-                       "categories": [{"id": 1, "name": "thing"}]}, f)
+    for dataset, n_train, n_val in datasets:
+        for split, n in (("train", n_train), ("val", n_val)):
+            if not n:
+                continue
+            images, anns = [], []
+            for i in range(n):
+                name = f"{dataset}_{split}_{i}.jpg"
+                cy, cx = rng.uniform(150, 330), rng.uniform(150, 490)
+                ry, rx = rng.uniform(60, 120), rng.uniform(60, 140)
+                img = 50 + 150 * rng.random((COCO_H, COCO_W, 3))
+                obj = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+                img[obj] = 0.4 * img[obj] + [130, 40, 40]
+                Image.fromarray(img.astype(np.uint8)).save(
+                    os.path.join(root, "train2014", name), quality=90)
+                angles = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+                poly = np.stack([cx + rx * np.cos(angles), cy + ry * np.sin(angles)], 1)
+                images.append({"id": i, "file_name": name, "height": COCO_H, "width": COCO_W,
+                               "caption": f"the red {('oval', 'blob')[i % 2]} in the picture"})
+                anns.append({"id": i, "image_id": i, "category_id": 1,
+                             "bbox": [cx - rx, cy - ry, 2 * rx, 2 * ry],
+                             "segmentation": [poly.ravel().tolist()],
+                             "area": float(obj.sum()), "iscrowd": 0})
+            with open(os.path.join(root, f"instances_{dataset}_{split}.json"), "w") as f:
+                json.dump({"images": images, "annotations": anns,
+                           "categories": [{"id": 1, "name": "thing"}]}, f)
 
 
 def phase_pretrain_cli(results):
@@ -2842,6 +2967,40 @@ def pseudo_label_frame(rng):
     return np.clip(img, 0, 255).astype(np.uint8), masks
 
 
+def densecl_checkpoint(path, calibrated=False):
+    """tests/torch_replica.py's ResNet-101 body (torchvision names), seeded,
+    saved as a DenseCL checkpoint.  Its frozen BatchNorm statistics are
+    seeded noise, or (``calibrated``) each layer's own input statistics on
+    one seeded 320 x 568 noise frame, as a trained network's are: the
+    random body's layer4 features are then no longer near-parallel, and
+    the sim model's similarity maps peak around their query point instead
+    of lying flat at about 0.02."""
+    replica_module = torch_replica()
+    torch.manual_seed(1)
+    body = replica_module.ResNetBody((3, 4, 23, 3))
+    bns = [m for m in body.modules() if isinstance(m, replica_module.FrozenBN2d)]
+    if calibrated:
+        def measure(mod, inputs):
+            mod.running_mean.copy_(inputs[0].mean((0, 2, 3)))
+            mod.running_var.copy_(inputs[0].var((0, 2, 3)))
+
+        hooks = [m.register_forward_pre_hook(measure) for m in bns]
+        img = np.random.default_rng(21).random((A2D_H, A2D_W, 3)).astype(np.float32)
+        x = torch.from_numpy(((img - IMAGENET_MEAN) / IMAGENET_STD).transpose(2, 0, 1)[None]
+                             .astype(np.float32))
+        with torch.no_grad():
+            body(x)
+        for h in hooks:
+            h.remove()
+    else:
+        g = torch.Generator().manual_seed(2)
+        for mod in bns:
+            n = mod.weight.numel()
+            mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+            mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    torch.save({"state_dict": body.state_dict()}, path)
+
+
 def phase_pseudo_labels(results):
     """The generator's --densecl path at full width: the replica's
     ResNet-101 body (torchvision names) through ``convert_resnet`` into the
@@ -2859,17 +3018,8 @@ def phase_pseudo_labels(results):
     smi = nvidia_smi_line()
     root = tempfile.mkdtemp(prefix="pseudo_", dir=_build.BUILD_DIR)
     try:
-        replica_module = torch_replica()
-        torch.manual_seed(1)
-        body = replica_module.ResNetBody((3, 4, 23, 3))
-        g = torch.Generator().manual_seed(2)
-        for mod in body.modules():
-            if isinstance(mod, replica_module.FrozenBN2d):
-                n = mod.weight.numel()
-                mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
-                mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
         pth = os.path.join(root, "densecl_r101.pth")
-        torch.save({"state_dict": body.state_dict()}, pth)
+        densecl_checkpoint(pth)
         models = {}
         for dev in ("cuda", "cpu"):
             models[dev] = sim_model.init_sim_model(device=dev)
@@ -3317,6 +3467,340 @@ def phase_bench(results):
     results["bench"] = rec
 
 
+# ----------------------------------------------------------------- recipes --
+# The recipes no other phase runs (ocpg_tpu_torch/scripts/recipes), in run
+# order; each test_* recipe evaluates the checkpoint of its train recipe.
+RECIPES = (
+    "train_a2d_resnet101_box", "train_a2d_resnet101_boxsup",
+    "train_a2d_resnet101_boxinst_point", "train_a2d_resnet101_boxlevelset",
+    "train_a2d_resnet101_boxlevelset_point", "train_a2d_resnet101_boxvos",
+    "train_a2d_resnet101_freeze", "train_a2d_resnet101_fullsup",
+    "train_a2d_resnet101_pointsup", "train_a2d_resnet101_pointsup_partial",
+    "train_a2d_videoswin_base", "train_a2d_videoswin_tiny", "test_a2d_videoswin_tiny",
+    "train_ytvos_resnet101_fullsup", "train_ytvos_resnet101_pointsup",
+    "train_ytvos_videoswin_base", "test_ytvos_videoswin_base",
+    "train_ytvos_videoswin_scratch", "train_ytvos_videoswin_tiny",
+    "train_joint_resnet101", "pretrain_refcoco")
+RECIPES_DIR = os.path.normpath(os.path.join(os.path.dirname(os.path.abspath(_build.__file__)),
+                                            os.pardir, "scripts", "recipes"))
+RECIPE_CKPT = {"test_a2d_videoswin_tiny": "train_a2d_videoswin_tiny",
+               "test_ytvos_videoswin_base": "train_ytvos_videoswin_base"}
+# the trees, each sized so that one epoch is two steps at its recipes' own
+# batch: A2D (generated pseudo-labels) 4 train clips (and 2 val videos for
+# the eval recipe), 8 for the batch-4 freeze recipe; Ref-YTVOS (h5 heat
+# maps) 2 clips for the batch-1 recipes, 4 (and a valid split) for the
+# batch-2 ones; joint 3 RefCOCO images and 1 Ref-YTVOS clip; pretrain 4
+# RefCOCO images (and 3 val images)
+RECIPE_TREE = {"train_a2d_resnet101_freeze": "a2d_b4",
+               "train_ytvos_resnet101_fullsup": "ytvos_b1",
+               "train_ytvos_resnet101_pointsup": "ytvos_b1",
+               "train_ytvos_videoswin_scratch": "ytvos_b1"}
+A2D_TRAIN_VIDEOS, A2D_VAL_VIDEOS, A2D_FRAMES = 4, 2, 8
+RECIPE_YTVOS_FRAMES = {"ytvos_b1": 2, "ytvos_b2": 4, "ytvos_joint": 1}
+RECIPE_VALID_FRAMES = 4
+RECIPE_STEPS = 2
+# K7 launches a forward, by backbone (each Swin block once)
+K7_PER_FORWARD = {"video_swin_t_p4w7": SWIN_T_BLOCKS, "video_swin_b_p4w7": SWIN_B_BLOCKS}
+RECORDER = ("#!/bin/bash\n"
+            "{ printf '%s\\x1f' \"$@\"; printf '\\n'; } >> \"$RECIPE_ARGV\"\n")
+
+
+def recipe_calls(path, env, work):
+    """(module, argv) of each call ``bash path`` makes on one GPU (NGPUS=1),
+    recorded by a stand-in ``python`` first on PATH."""
+    import subprocess
+
+    bin_dir = os.path.join(work, "bin")
+    os.makedirs(bin_dir, exist_ok=True)
+    with open(os.path.join(bin_dir, "python"), "w") as f:
+        f.write(RECORDER)
+    os.chmod(os.path.join(bin_dir, "python"), 0o755)
+    argv_log = os.path.join(work, "argv.log")
+    if os.path.exists(argv_log):
+        os.remove(argv_log)
+    base = {k: v for k, v in os.environ.items() if k not in ("NGPUS", "OCPG_BS")}
+    subprocess.run(["bash", path], cwd=work, check=True, capture_output=True, timeout=60,
+                   env={**base, "PATH": f"{bin_dir}:{os.environ['PATH']}", "NGPUS": "1",
+                        "RECIPE_ARGV": argv_log, **env})
+    calls = []
+    with open(argv_log) as f:
+        for line in f.read().splitlines():
+            args = line.split("\x1f")[:-1]
+            check(args[:1] == ["-m"], f"{path}: a call not of python -m: {args}")
+            calls.append((args[1], args[2:]))
+    return calls
+
+
+def set_flag(argv, flag, value):
+    """``argv`` with ``flag``'s value set to ``value`` (added if absent)."""
+    argv = list(argv)
+    if flag in argv:
+        argv[argv.index(flag) + 1] = value
+    else:
+        argv += [flag, value]
+    return argv
+
+
+def flag_value(argv, flag, default=None):
+    return argv[argv.index(flag) + 1] if flag in argv else default
+
+
+def write_recipe_trees(root, pth):
+    """The phase's trees (``RECIPE_TREE``'s comment), the A2D ones labelled
+    by generate_pseudo_labels_a2d.sh's own call; returns name -> path and
+    the seconds per A2D tree's labelling."""
+    from ocpg_tpu_torch.scripts.bench_loader import build_tree
+
+    trees = {name: os.path.join(root, name) for name in
+             ("a2d", "a2d_b4", "ytvos_b1", "ytvos_b2", "ytvos_joint", "coco_joint",
+              "coco_all")}
+    for name, train in (("a2d", A2D_TRAIN_VIDEOS), ("a2d_b4", 2 * A2D_TRAIN_VIDEOS)):
+        val = A2D_VAL_VIDEOS if name == "a2d" else 0
+        build_a2d_tree(trees[name], train + val, A2D_FRAMES)
+        # bench_eval_e2e's tree is a test split: the first videos train
+        csv_path = os.path.join(trees[name], "Release", "videoset.csv")
+        with open(csv_path) as f:
+            rows = f.read().splitlines()
+        with open(csv_path, "w") as f:
+            f.write("\n".join(r[:-1] + ("0" if i < train else "1")
+                              for i, r in enumerate(rows)) + "\n")
+    for name, frames in RECIPE_YTVOS_FRAMES.items():
+        build_tree(trees[name], 1, frames, CLI_H, CLI_W, dataset="ytvos")
+    rng = np.random.default_rng(17)
+    write_ytvos_valid(trees["ytvos_b2"], {"vidV": ytvos_blob_frames(rng, RECIPE_VALID_FRAMES, 0)})
+    write_coco_tree(trees["coco_joint"], (("refcoco", 1, 0), ("refcoco+", 1, 0),
+                                          ("refcocog", 1, 0)))
+    write_coco_tree(trees["coco_all"], (("refcoco", 2, 1), ("refcoco+", 1, 1),
+                                        ("refcocog", 1, 1)))
+    from ocpg_tpu_torch.preprocess import generate_anno
+
+    label_s = {}
+    for name in ("a2d", "a2d_b4"):
+        (module, argv), = recipe_calls(
+            os.path.join(RECIPES_DIR, "generate_pseudo_labels_a2d.sh"),
+            {"A2D_PATH": trees[name], "DENSECL_CKPT": pth}, root)
+        check(module == "ocpg_tpu_torch.preprocess.generate_anno"
+              and flag_value(argv, "--root") == trees[name],
+              f"generate_pseudo_labels_a2d.sh called {module} {argv}")
+        t0 = time.perf_counter()
+        generate_anno.main(argv)
+        label_s[name] = time.perf_counter() - t0
+    return trees, label_s
+
+
+def recipe_env(name, trees):
+    """The recipe's own variables, pointed at the phase's trees."""
+    if name == "train_joint_resnet101":
+        return {"YTVOS_PATH": trees["ytvos_joint"], "COCO_PATH": trees["coco_joint"],
+                "REFEXP_ANN_DIR": trees["coco_joint"]}
+    if name == "pretrain_refcoco":
+        return {"COCO": trees["coco_all"]}
+    tree = trees[RECIPE_TREE.get(name, "a2d" if "_a2d_" in name else "ytvos_b2")]
+    return {"DATA_ROOT": tree, "A2D_PATH": tree, "YTVOS_PATH": tree}
+
+
+class RecipeProbe:
+    """While attached: the train steps and the model's train and eval
+    forwards; the first step's target maps and metric names; the backbone
+    before the first step and the model that trained; the steps of the
+    checkpoints saved, which are written only with ``write_checkpoints``
+    (the machine's disk takes 45 GiB a call, and a full-width checkpoint
+    with AdamW's moments is 1.1-1.9 GB)."""
+
+    def __init__(self, write_checkpoints):
+        self.steps = self.train_forwards = self.eval_forwards = 0
+        self.first, self.metric_keys, self.losses = None, None, []
+        self.backbone0, self.model = None, None
+        self.write_checkpoints, self.saved = write_checkpoints, []
+
+    @contextlib.contextmanager
+    def attached(self):
+        from ocpg_tpu_torch.engine.train import TrainStep
+        from ocpg_tpu_torch.models.ocpg import OCPG
+
+        step_call, forward, save = TrainStep.__call__, OCPG.forward, CheckpointManager.save
+        probe = self
+
+        def saved(manager, step, state):
+            probe.saved.append((step, sorted(state)))
+            if probe.write_checkpoints:
+                save(manager, step, state)
+
+        def call(step, batch):
+            if probe.first is None:
+                probe.first = {k: batch["targets"][k].float().cpu().numpy()
+                               for k in ("masks", "weak_masks", "weights")}
+                probe.backbone0 = {k: v.detach().clone()
+                                   for k, v in step.model.backbone.state_dict().items()}
+                probe.model = step.model
+            metrics = step_call(step, batch)
+            probe.steps += 1
+            probe.losses.append((metrics["loss"], metrics["grad_norm"]))
+            if probe.metric_keys is None:
+                probe.metric_keys = set(metrics)
+            return metrics
+
+        def counted(model, *args, **kw):
+            if kw.get("train", False):
+                probe.train_forwards += 1
+            else:
+                probe.eval_forwards += 1
+            return forward(model, *args, **kw)
+
+        TrainStep.__call__, OCPG.forward, CheckpointManager.save = call, counted, saved
+        try:
+            yield self
+        finally:
+            TrainStep.__call__, OCPG.forward, CheckpointManager.save = step_call, forward, save
+
+
+def run_recipe(results, name, trees, work, outputs, smi):
+    """One recipe through its own calls (``--output_dir`` a directory of the
+    phase, ``--epochs`` 1), in this process, and its checks."""
+    import importlib
+
+    env = recipe_env(name, trees)
+    if name in RECIPE_CKPT:
+        env["CKPT"] = os.path.join(outputs[RECIPE_CKPT[name]], "checkpoints")
+    calls = recipe_calls(os.path.join(RECIPES_DIR, f"{name}.sh"), env, work)
+    check(len(calls) == 1, f"{name}: {len(calls)} calls")
+    (module, argv), = calls
+    out = os.path.join(work, name)
+    cli = module.rsplit(".", 1)[-1]
+    if cli in ("train", "pretrain", "infer_ytvos"):
+        argv = set_flag(argv, "--output_dir", out)
+    if cli in ("train", "pretrain"):
+        argv = set_flag(argv, "--epochs", "1")
+    outputs[name] = out
+    backbone = flag_value(argv, "--backbone", "resnet101")
+    recompute = "--use_checkpoint" in argv
+    supervision = flag_value(argv, "--supervision", "full" if cli == "pretrain" else "box")
+    pairwise = flag_value(argv, "--supervision_type") in ("boxinst", "boxvos")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe = RecipeProbe(write_checkpoints=name in RECIPE_CKPT.values())
+    reset_counts()
+    t0 = time.perf_counter()
+    with probe.attached():
+        ret = importlib.import_module(module).main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    results["paths"][f"recipe_{name}"] = counts
+    nt, ne = probe.train_forwards, probe.eval_forwards
+    k7 = K7_PER_FORWARD.get(backbone, 0)
+    want = counts_of(K1=8 * (nt + ne), K2=8 * nt, K7=k7 * (ne + nt * (2 if recompute else 1)))
+    check(counts == want, f"recipe {name}: {nt} train steps and {ne} eval forwards launched "
+                          f"{counts}, want {want}")
+    check(nt == probe.steps, f"recipe {name}: {probe.steps} steps, {nt} train forwards")
+    rec = {"module": module, "argv": argv, "s": secs, "peak_gib": peak, "steps": nt,
+           "eval_forwards": ne, "launches": counts}
+    notes = []
+    if cli in ("train", "pretrain"):
+        check(nt == RECIPE_STEPS, f"recipe {name}: {nt} steps in its epoch, want {RECIPE_STEPS}")
+        check(all(math.isfinite(v) for pair in probe.losses for v in pair),
+              f"recipe {name}: non-finite loss or grad_norm {probe.losses}")
+        with open(os.path.join(out, "log.txt")) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+        check(len(lines) == 1 and all(math.isfinite(v) for k, v in lines[0].items()
+                                      if k == "loss" or k == "grad_norm"
+                                      or k.startswith("refcoco")),
+              f"recipe {name}: log.txt {lines}")
+        check([step for step, _ in probe.saved] == [RECIPE_STEPS] and all(
+            keys == ["model", "optimizer", "train_step"] for _, keys in probe.saved),
+              f"recipe {name}: checkpoints saved {probe.saved}")
+        check(("loss_pairwise" in probe.metric_keys) == pairwise,
+              f"recipe {name}: pairwise loss {'missing' if pairwise else 'reported'} "
+              f"({sorted(probe.metric_keys)})")
+        rec["losses"] = probe.losses
+        notes.append(f"loss {probe.losses[0][0]:.4f} -> {probe.losses[-1][0]:.4f}, grad_norm "
+                     f"{probe.losses[-1][1]:.4f}; pairwise {'on' if pairwise else 'off'}")
+        if supervision in ("box", "point"):
+            inside = probe.first["masks"] > 0
+            weak = float((probe.first["weak_masks"][inside] > 0).mean())
+            heat = float((probe.first["weights"][inside] > 0).mean())
+            check(inside.any() and weak > 0 and (supervision == "box" or heat > 0),
+                  f"recipe {name}: the first batch's weak masks ({weak:.4f} of the object) "
+                  f"or heat maps ({heat:.4f}) are not on the object")
+            rec.update(weak_on_object=weak, heat_on_object=heat)
+            notes.append(f"first batch's weak mask on {100 * weak:.2f}% of the object, heat "
+                         f"map on {100 * heat:.2f}%")
+        if "--freeze_video_encoder" in argv:
+            after = probe.model.backbone.state_dict()
+            moved = [k for k, v in probe.backbone0.items() if not torch.equal(v, after[k])]
+            check(not moved, f"recipe {name}: frozen backbone tensors moved: {moved[:5]}")
+            notes.append(f"{len(after)} backbone tensors bit-identical")
+    elif cli == "evaluate":
+        check(ne > 0 and isinstance(ret, dict) and ret and all(
+            math.isfinite(float(v)) for v in ret.values()), f"recipe {name}: metrics {ret}")
+        rec["metrics"] = ret
+        notes.append(f"{len(ret)} metrics finite")
+    elif cli == "infer_ytvos":
+        pngs = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(out, "Annotations"))
+                for f in fs if f.endswith(".png")]
+        check(ne > 0 and len(pngs) == 2 * RECIPE_VALID_FRAMES,
+              f"recipe {name}: {len(pngs)} PNGs after {ne} dispatches")
+        notes.append(f"{len(pngs)} PNGs")
+    probe.model = probe.backbone0 = None
+    results["recipes"][name] = rec
+    log(f"recipe {name}: {cli} {backbone}{' --use_checkpoint' if recompute else ''}, "
+        f"supervision {supervision}, batch {flag_value(argv, '--batch_size', 'default')}: "
+        f"{nt} steps, {ne} eval forwards in {secs:.1f} s (model build, loader and "
+        f"checkpoint included), peak memory {peak:.2f} GiB; launches {counts}; "
+        + "; ".join(notes) + f" [{smi}]")
+
+
+def phase_recipes(results):
+    """The 21 run recipes no other phase runs (``RECIPES``), each through its
+    own calls recorded under bash (``NGPUS=1``), with ``--output_dir`` a
+    directory of the phase and ``--epochs`` 1, in this process at full
+    width, on trees sized to two steps an epoch (the A2D ones labelled by
+    generate_pseudo_labels_a2d.sh's call with a DenseCL checkpoint whose
+    BatchNorm statistics are calibrated); each test_* recipe evaluates the
+    checkpoint its train recipe just wrote.  Checks per run: ``main``
+    returns; K1 8 per forward, K2 8 per step, K7 12 (Swin-T) or 24 (Swin-B)
+    per forward and again per step with --use_checkpoint; two steps, every
+    loss and grad_norm finite, log.txt finite; the pairwise loss reported
+    with boxinst and boxvos alone; the first batch's weak masks (box and
+    point) and heat maps (point) on the object; the backbone bit-identical
+    with --freeze_video_encoder; the eval metrics finite, the PNGs written;
+    one checkpoint saved at step 2 (written to disk only where a test
+    recipe reads it: ``RecipeProbe``).  Seconds and peak memory per recipe."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    results["recipes"] = {}
+    root = tempfile.mkdtemp(prefix="recipes_", dir=_build.BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        pth = os.path.join(root, "densecl_r101.pth")
+        densecl_checkpoint(pth, calibrated=True)
+        reset_counts()
+        trees, label_s = write_recipe_trees(root, pth)
+        counts = read_counts()
+        check(counts == counts_of(), f"recipes: labelling the A2D trees launched {counts}")
+        log(f"recipes: trees written and the A2D ones labelled in {time.perf_counter() - t0:.1f} "
+            f"s (generate_anno.main {label_s['a2d']:.1f} s for {A2D_TRAIN_VIDEOS + A2D_VAL_VIDEOS} "
+            f"videos, {label_s['a2d_b4']:.1f} s for {2 * A2D_TRAIN_VIDEOS})")
+        outputs = {}
+        for name in RECIPES:
+            run_recipe(results, name, trees, root, outputs, smi)
+            if name in RECIPE_CKPT.values():
+                continue
+            shutil.rmtree(outputs[name], ignore_errors=True)
+            if name in RECIPE_CKPT:
+                shutil.rmtree(outputs[RECIPE_CKPT[name]], ignore_errors=True)
+        recs = results["recipes"]
+        log(f"recipes: {len(recs)} recipes in {sum(r['s'] for r in recs.values()):.1f} s; "
+            f"peak memory {max(r['peak_gib'] for r in recs.values()):.2f} GiB "
+            f"({max(recs, key=lambda k: recs[k]['peak_gib'])}) [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def run_script(results, path, fn):
     """``fn()`` with the launch counters reset before and read after, the
     counts kept as path ``path``; returns (fn's result, the counts)."""
@@ -3436,7 +3920,35 @@ def phase_bench_scripts(results):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def main() -> int:
+# every phase, in the order it runs (phase bench_scripts reads phase bench's
+# step time)
+PHASES = (("kernel", phase_kernel), ("card", lambda _: phase_card()),
+          ("serve", phase_serve), ("a2d", phase_a2d), ("train", phase_train),
+          ("swin_serve", phase_swin_serve), ("swin_a2d", phase_swin_a2d),
+          ("swin_train", phase_swin_train), ("swin_t", phase_swin_t),
+          ("resume", phase_resume), ("train_cli", phase_train_cli),
+          ("multi_gpu", phase_multi_gpu), ("eval_cli", phase_eval_cli),
+          ("pretrain_cli", phase_pretrain_cli), ("infer_davis", phase_infer_davis),
+          ("infer_ytvos", phase_infer_ytvos), ("pretrained", phase_pretrained),
+          ("pseudo_labels", phase_pseudo_labels), ("recipes", phase_recipes),
+          ("demo_e2e", phase_demo_e2e), ("long_run", phase_long_run),
+          ("memory_envelope", phase_memory_envelope), ("std_op", phase_std_op),
+          ("msda_bench", phase_msda_bench), ("bench", phase_bench),
+          ("bench_scripts", phase_bench_scripts))
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    phases = dict(PHASES)
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
+    ap.add_argument("--phases", nargs="+", choices=list(phases), default=list(phases),
+                    help="run only these phases, in the script's order (default: all); "
+                         "the result lines come only from a run of every phase")
+    args = ap.parse_args(argv)
+    if "bench_scripts" in args.phases and "bench" not in args.phases:
+        ap.error("phase bench_scripts needs phase bench")
+    args.phases = [name for name in phases if name in args.phases]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
         return 2
@@ -3453,22 +3965,13 @@ def main() -> int:
         f"(phase {time.perf_counter() - t0:.1f} s)")
     for src, text in _build.build_logs.items():
         log(f"build log {src}:\n{text.strip()}")
-    for name, fn in (("kernel", phase_kernel), ("card", lambda _: phase_card()),
-                     ("serve", phase_serve), ("a2d", phase_a2d), ("train", phase_train),
-                     ("swin_serve", phase_swin_serve), ("swin_a2d", phase_swin_a2d),
-                     ("swin_train", phase_swin_train), ("resume", phase_resume),
-                     ("train_cli", phase_train_cli), ("multi_gpu", phase_multi_gpu),
-                     ("eval_cli", phase_eval_cli),
-                     ("pretrain_cli", phase_pretrain_cli), ("infer_davis", phase_infer_davis),
-                     ("infer_ytvos", phase_infer_ytvos), ("pretrained", phase_pretrained),
-                     ("pseudo_labels", phase_pseudo_labels), ("demo_e2e", phase_demo_e2e),
-                     ("long_run", phase_long_run), ("memory_envelope", phase_memory_envelope),
-                     ("std_op", phase_std_op),
-                     ("msda_bench", phase_msda_bench), ("bench", phase_bench),
-                     ("bench_scripts", phase_bench_scripts)):
+    for name in args.phases:
         t0 = time.perf_counter()
-        fn(results)
+        phases[name](results)
         log(f"phase {name} ok in {time.perf_counter() - t0:.1f} s")
+    if args.phases != list(phases):
+        log(f"phases {' '.join(args.phases)} ok; no result lines without every phase")
+        return 0
 
     # K1 timed at the serving encoder call (and at every call of phase
     # kernel, by_call), K2, K3 and K4 at the train encoder (K2 and K4 also at
@@ -3524,6 +4027,7 @@ def main() -> int:
               infer_davis_stage0=dict(results["wattn_infer_davis"],
                                       at="infer_davis stage 0 at clip_len 36, shifted block "
                                          "(bw=1610, h=4, n=392, dh=32)"),
+              swin_t=results["wattn_swin_t"],
               by_call=results["wattn_report"]),
     ]
     log("resize: " + json.dumps(results["resize"]))

@@ -16,8 +16,11 @@ target schema:
 
 Quirks of the reference kept on purpose: YTVOS box supervision reads
 ``heatPoint`` for both box and point modes, while A2D reads ``heatBBox``
-for box; A2D scales ``weight2mask``'s pixel-unit pseudo box by (w, h)
-again before clamping.
+for box.  Two faults of the reference, which the JAX package keeps, are
+repaired: A2D's point-supervised box is ``weight2mask``'s pixel box (the
+reference scales it by (w, h) once more, so no clip stays valid), and the
+loader (``transforms.pad_to_canvas``) keeps an A2D clip's targets to its
+annotated frame instead of repeating them over the clip.
 
 The JAX package reads the h5 files with h5py, imported when the module
 loads; here ``h5.read_datasets`` (numpy and the standard library) reads
@@ -289,9 +292,12 @@ class A2DSentencesDataset:
             inst_masks = inst_masks[None]
         inst_masks = np.transpose(inst_masks, (0, 2, 1))  # stored transposed (a2d.py:186)
 
+        # the pseudo box in pixels, as the Ref-YTVOS reader keeps it.  The
+        # reference (a2d.py:178-180) and the JAX package scale this pixel box
+        # by (w, h) once more, which clips it to the image's corner: no
+        # point-supervised clip then survives the transforms, and the loader
+        # gives up after 20 draws
         weak_mask, weak_box = weight2mask(heatmaps, inst)
-        # reference re-scales the pixel-unit pseudo box by (w, h) (a2d.py:178-180)
-        weak_box = weak_box * np.array([w, h, w, h], np.float32)
 
         mask = inst_masks[inst].astype(np.float32)
         if (mask > 0).any():

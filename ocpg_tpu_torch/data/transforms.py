@@ -395,7 +395,10 @@ def pad_to_canvas(clip: Clip, canvas: Tuple[int, int],
     t = clip.frames.shape[0]
 
     def pad(x, dtype=np.float32):
-        out = np.zeros((t, ch, cw) + x.shape[3:], dtype=dtype)
+        # each map keeps its own frame count: the clip's T, or one for the
+        # annotated frame of an A2D or JHMDB clip, whose targets are that
+        # frame's alone (the model keeps only that frame's features)
+        out = np.zeros(x.shape[:1] + (ch, cw) + x.shape[3:], dtype=dtype)
         out[:, :h, :w] = x
         return out
 

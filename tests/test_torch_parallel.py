@@ -392,6 +392,17 @@ def test_sharded_train_loader_rows_make_the_jax_global_batch(ytvos_root):
     _assert_shards_make(shards, want, 4)
 
 
+def _annotated_frame_targets(batch):
+    """A JAX batch of one-frame clips (JHMDB, A2D) as the port's loader
+    carries it: JAX repeats the annotated frame's maps over the clip's
+    frames, the port keeps them once."""
+    tg = dict(batch["targets"])
+    for k in ("masks", "weak_masks", "weights"):
+        assert (tg[k] == tg[k][:, :1]).all(), k
+        tg[k] = tg[k][:, :1]
+    return {**batch, "targets": tg}
+
+
 def test_sharded_eval_loader_rows_make_the_jax_global_batch(jhmdb_root):
     """Eval: 6 JHMDB clips in global batches of 4 over 2 ranks; the tail
     holds 2 real rows, so rank 1's rows are all padding (real_count 0)."""
@@ -399,6 +410,7 @@ def test_sharded_eval_loader_rows_make_the_jax_global_batch(jhmdb_root):
               compact=True)
     want = list(JaxClipLoader(ranks.Repeat(jds.build_dataset("jhmdb", jhmdb_root, "val", 3), 6),
                               **kw).epoch(0))
+    want = [_annotated_frame_targets(w) for w in want]
     shards = [list(ClipLoader(ranks.Repeat(build_dataset_("jhmdb", jhmdb_root), 6),
                               shard=(r, 2), **kw).epoch(0)) for r in range(2)]
     assert len(want) == 2 and want[-1]["real_count"] == 2

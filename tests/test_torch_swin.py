@@ -37,6 +37,8 @@ from tests.torch_threads import one_torch_thread  # noqa: F401
 ATOL = 1e-4
 B, T, H, W, LT = 1, 3, 128, 192, 8
 SMALL = dict(embed_dim=32, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8))
+# Video Swin-T's widths (video_swin_t_p4w7) with its depths (2, 2, 6, 2) cut
+SWIN_T_CUT = dict(embed_dim=96, depths=(2, 2, 2, 2), num_heads=(3, 6, 12, 24))
 
 
 def _noise(params, seed):
@@ -50,10 +52,14 @@ def _noise(params, seed):
     return jax.tree_util.tree_map_with_path(fill, params)
 
 
-def _carry(jmodule, port, x, seed, **kw):
-    """JAX init shapes -> noise -> the port; returns the JAX module's output."""
-    shapes = jax.eval_shape(lambda: jmodule.init(jax.random.PRNGKey(0), x, **kw))
-    variables = {"params": _noise(shapes["params"], seed)}
+def _carry(jmodule, port, x, seed, init=False, **kw):
+    """JAX init shapes -> noise (``init``: JAX's own init drawn from ``seed``)
+    -> the port; returns the JAX module's output."""
+    if init:
+        variables = jax.jit(lambda: jmodule.init(jax.random.PRNGKey(seed), x, **kw))()
+    else:
+        shapes = jax.eval_shape(lambda: jmodule.init(jax.random.PRNGKey(0), x, **kw))
+        variables = {"params": _noise(shapes["params"], seed)}
     assert load_jax_params(port, variables) == []
     return jax.jit(lambda v, a: jmodule.apply(v, a, **kw))(variables, x)
 
@@ -82,25 +88,35 @@ def test_patch_merging_at_odd_sizes_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-@pytest.mark.parametrize("variant", ["video_swin_test", "swin2d_small"])
+@pytest.mark.parametrize("variant", ["video_swin_test", "swin2d_small", "video_swin_t_cut"])
 def test_backbone_matches_jax(variant):
     """The whole backbone, four levels: the video variant over a 3-frame clip
     at 61 x 90 (flax 'SAME' padding of the patch conv: 1 + 2 rows, 1 + 1
     columns; odd widths at PatchMerging), the 2D variant (window (1, 7, 7),
-    each frame alone) at the same size."""
+    each frame alone) at the same size, and Video Swin-T at its own widths
+    (embed 96, 3/6/12/24 heads of 32 channels) with its depths cut to 2 a
+    stage, so that every stage has a shifted block."""
     if variant == "video_swin_test":
         jmod = jax_swin.build_video_swin(variant, num_frames=T)
         port, kw = backbone_video_swin.build_video_swin(variant), {"num_frames": T}
+    elif variant == "video_swin_t_cut":
+        jmod = jax_swin.VideoSwin(num_frames=T, **SWIN_T_CUT)
+        port, kw = backbone_video_swin.VideoSwin(**SWIN_T_CUT), {"num_frames": T}
     else:
         jmod = jax_swin.VideoSwin(window_size=(1, 7, 7), num_frames=1, **SMALL)
         port, kw = backbone_video_swin.VideoSwin(window_size=(1, 7, 7), num_frames=1,
                                                  **SMALL), {}
     frames = np.random.default_rng(4).standard_normal((T, 61, 90, 3)).astype(np.float32)
-    want = _carry(jmod, port.eval(), jnp.asarray(frames), seed=5)
+    # Swin-T's weights come from JAX's own initialisers: at its widths 0.1 x
+    # N(0, 1) noise grows the last level to |x| ~ 18, where 1e-4 is 5e-6 of
+    # it, finer than float32 sums in another order keep
+    want = _carry(jmod, port.eval(), jnp.asarray(frames), seed=5,
+                  init=variant == "video_swin_t_cut")
     with torch.no_grad():
         got = port(torch.from_numpy(frames).permute(0, 3, 1, 2), **kw)
-    assert [tuple(g.shape) for g in got] == [(T, 32, 16, 23), (T, 64, 8, 12),
-                                             (T, 128, 4, 6), (T, 256, 2, 3)]
+    c = port.embed_dim
+    assert [tuple(g.shape) for g in got] == [(T, c, 16, 23), (T, 2 * c, 8, 12),
+                                             (T, 4 * c, 4, 6), (T, 8 * c, 2, 3)]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(), np.asarray(w), atol=ATOL)
 
@@ -194,3 +210,36 @@ def test_swin_engine_matches_jax_engine(weights):
         _assert_masks(p_res[i], j_res[i])
         np.testing.assert_allclose(peng.last_query_scores[i], jeng.last_query_scores[i],
                                    atol=LOGIT_ATOL)
+
+
+def test_swin_t_a2d_eval_forward_matches_jax(inputs, monkeypatch):
+    """``a2d_videoswin_tiny`` at its widths (Video Swin-T, the transformer at
+    hidden 256 and FFN 2048, RoBERTa-base's 768 x 12 heads), its depths cut
+    (Swin 2 a stage, 1 + 2 transformer layers, 2 text layers), in float32:
+    the A2D eval forward with valid_indices.  Weights from JAX's own init
+    (seeded), as at the backbone's Swin-T case."""
+    from ocpg_tpu.config import a2d_videoswin_tiny as jax_a2d_videoswin_tiny
+
+    for configs in (jax_swin._CONFIGS, backbone_video_swin._CONFIGS):
+        monkeypatch.setitem(configs, "video_swin_t_p4w7", SWIN_T_CUT)
+    jcfg = jax_a2d_videoswin_tiny().replace(
+        enc_layers=1, dec_layers=2, text_layers=2, num_frames=T, compute_dtype="float32",
+        msda_impl="xla")
+    jmodel, *_ = jax_build_model(jcfg)
+    samples, smask, ids, mask, sizes = inputs
+    ids = ids % jcfg.text_vocab
+    args = tuple(map(jnp.asarray, (samples, smask, ids, mask, sizes)))
+    vidx = jnp.asarray([1], jnp.int32)
+    variables = jax.jit(lambda: jmodel.init(jax.random.PRNGKey(9), *args, valid_indices=vidx,
+                                            train=False))()
+    j_out = jax.jit(lambda v: jmodel.apply(v, *args, valid_indices=vidx, train=False))(
+        variables)
+    model = build_model(port_config(jcfg), device="cpu")
+    assert model.backbone.embed_dim == 96 and model.backbone.depths == (2, 2, 2, 2)
+    load_jax_params(model, jax.tree_util.tree_map(np.asarray, variables))
+    t_out = model(*(torch.from_numpy(np.asarray(a)) for a in (samples, smask, ids, mask, sizes)),
+                  valid_indices=torch.tensor([1], dtype=torch.int32))
+    for k in ("pred_logits", "pred_boxes"):
+        np.testing.assert_allclose(t_out[k].detach().numpy(), np.asarray(j_out[k]),
+                                   atol=LOGIT_ATOL, err_msg=k)
+    _assert_masks(t_out["pred_masks"].detach().numpy(), np.asarray(j_out["pred_masks"]))

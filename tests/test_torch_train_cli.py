@@ -16,6 +16,7 @@ one expression, TINY_CFG), against the JAX package.
   their init), the first batch the JAX loader's with the same tokenizer.
 """
 import json
+import random
 
 import numpy as np
 import pytest
@@ -55,10 +56,10 @@ def tree(tmp_path_factory):
 NUM_FRAMES = "2"
 
 
-def _argv(tree, out_dir, epochs, debug_images_every=2):
-    return ["--dataset_file", "ytvos", "--backbone", "resnet50", "--supervision", "box",
+def _argv(tree, out_dir, epochs, debug_images_every=2, dataset="ytvos", supervision="box"):
+    return ["--dataset_file", dataset, "--backbone", "resnet50", "--supervision", supervision,
             "--num_frames", NUM_FRAMES, "--batch_size", "1", "--epochs", str(epochs),
-            "--num_workers", "2", "--ytvos_path", str(tree), "--output_dir", str(out_dir),
+            "--num_workers", "2", f"--{dataset}_path", str(tree), "--output_dir", str(out_dir),
             "--canvas", "64", "80", "--log_every", "1", "--tb_every", "0",
             "--debug_images_every", str(debug_images_every),
             "--config_overrides", json.dumps(TINY_CFG), "--device", "cpu"]
@@ -86,8 +87,8 @@ def test_train_cli_and_resume(tree, tmp_path):
     assert CheckpointManager(str(ckpt_dir)).latest_step() == 2 * steps_per_epoch
 
 
-def _cli_pieces(tree, tmp_path):
-    args = train_cli.get_args(_argv(tree, tmp_path, epochs=1))
+def _cli_pieces(tree, tmp_path, extra=(), **kw):
+    args = train_cli.get_args(_argv(tree, tmp_path, epochs=1, **kw) + list(extra))
     cfg = train_cli.make_config(args)
     loader = train_cli.make_loader(args, cfg, train_cli.make_dataset(args, cfg))
     return args, cfg, next(iter(loader.epoch(0)))
@@ -106,18 +107,22 @@ def test_cli_first_batch_matches_the_jax_loader(tree, tmp_path):
     assert_batches_equal(got, want)
 
 
-def test_cli_train_step_matches_jax_with_carried_weights(tree, tmp_path):
-    _, cfg, batch = _cli_pieces(tree, tmp_path)
+def _carried_step_matches_jax(cfg, batch):
+    """JAX's parameters carried into the port: one deterministic TrainStep on
+    the CLI's compact batch against JAX's loss, losses and gradient norm."""
     jcfg = JaxConfig(**{k: getattr(cfg, k) for k in cfg.__dataclass_fields__},
                      msda_impl="xla")
     jmodel, _, crit_cfg, weight_dict = jax_build_model(jcfg)
     host = dict(batch)
     host.update(jax.tree_util.tree_map(np.asarray, jax_decompress_batch(batch)))
     variables = _train_variables(jmodel, host, seed=2)
+    vidx = host.get("valid_indices")
 
     def loss_fn(params, frozen):
         out = jmodel.apply({"params": params, "frozen": frozen}, *_jax_args(host),
-                           targets=_jax(host["targets"]), train=True, deterministic=True)
+                           targets=_jax(host["targets"]),
+                           valid_indices=None if vidx is None else jnp.asarray(vidx),
+                           train=True, deterministic=True)
         return jax_compute_criterion(crit_cfg, weight_dict, out, _jax(host["targets"]),
                                      jnp.asarray(0))
 
@@ -127,14 +132,124 @@ def test_cli_train_step_matches_jax_with_carried_weights(tree, tmp_path):
     model = build_model(cfg, device="cpu")
     assert load_jax_params(model, variables) == []
     step = TrainStep(model, criterion_config(cfg), build_weight_dict(cfg),
-                     build_optimizer(model, cfg), deterministic=True)
+                     build_optimizer(model, cfg), deterministic=True,
+                     has_valid_indices=vidx is not None)
     metrics = step(batch)                # the compact host batch, as the CLI feeds it
     assert metrics["finite"] == 1.0
     np.testing.assert_allclose(metrics["loss"], float(total), rtol=LOSS_RTOL)
+    assert {k for k in metrics if k.startswith("loss_")} >= set(losses)
     for k, v in losses.items():
         np.testing.assert_allclose(metrics[k], float(v), rtol=LOSS_RTOL, atol=1e-6, err_msg=k)
     norm = float(jnp.sqrt(sum(jnp.sum(g * g) for g in jax.tree_util.tree_leaves(grads))))
     np.testing.assert_allclose(metrics["grad_norm"], norm, rtol=NORM_RTOL)
+    return metrics, losses
+
+
+def test_cli_train_step_matches_jax_with_carried_weights(tree, tmp_path):
+    _, cfg, batch = _cli_pieces(tree, tmp_path)
+    _carried_step_matches_jax(cfg, batch)
+
+
+@pytest.fixture(scope="module")
+def a2d_tree(tmp_path_factory):
+    """The A2D tree with a point heat map that marks the object (0.9 over
+    its box, as the generator's peak does), so point supervision has a weak
+    mask and box."""
+    return fx.write_a2d_tree(tmp_path_factory.mktemp("a2d"), point_heat=0.9)
+
+
+def test_a2d_batch_carries_the_annotated_frame_targets_once(a2d_tree, tmp_path):
+    """The fault the port repairs: JAX's loader broadcasts an A2D clip's one
+    annotated frame's mask, weak mask and heat map over the clip's T
+    frames, which JAX's own train forward (the annotated frame alone after
+    valid_indices) cannot match against; the port's loader carries them
+    once, equal to JAX's first copy, and JAX's model takes that batch."""
+    args, cfg, got = _cli_pieces(a2d_tree, tmp_path, dataset="a2d")
+    jds = jax_build_dataset("a2d", str(a2d_tree), "train", cfg.num_frames, cfg.supervision)
+    jax_loader = JaxClipLoader(jds, cfg.batch_size, tokenizer=JaxTokenizer(
+        None, vocab_size=cfg.text_vocab), train=True, seed=cfg.seed, canvas=(64, 80),
+        num_workers=args.num_workers, compact=True)
+    want = next(iter(jax_loader.epoch(0)))
+    t = want["samples"].shape[1]
+    assert t == 3 and got["samples"].shape == want["samples"].shape
+    for k in ("masks", "weak_masks", "weights"):
+        jt = want["targets"][k]
+        assert jt.shape[1] == t and (jt == jt[:, :1]).all(), k
+        assert got["targets"][k].shape[1] == 1, k
+        np.testing.assert_array_equal(got["targets"][k], jt[:, :1], err_msg=k)
+    maps = ("masks", "weak_masks", "weights")
+    assert_batches_equal(
+        {**got, "targets": {k: v for k, v in got["targets"].items() if k not in maps}},
+        {**want, "targets": {k: v for k, v in want["targets"].items() if k not in maps}})
+
+    jmodel, *_ = jax_build_model(JaxConfig(
+        **{k: getattr(cfg, k) for k in cfg.__dataclass_fields__}, msda_impl="xla"))
+
+    def forward_shapes(batch):
+        """JAX's train forward on ``batch``, traced (shapes only)."""
+        host = dict(batch)
+        host.update(jax.tree_util.tree_map(np.asarray, jax_decompress_batch(batch)))
+        return jax.eval_shape(lambda: jmodel.init_with_output(
+            jax.random.PRNGKey(0), *_jax_args(host), targets=_jax(host["targets"]),
+            valid_indices=jnp.asarray(host["valid_indices"]), train=True,
+            deterministic=True)[0])
+
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        forward_shapes(want)
+    assert forward_shapes(got)["pred_masks_layers"].shape[2:] == (1, 64, 80)
+
+
+def test_a2d_point_box_is_the_weak_mask_box(a2d_tree, tmp_path):
+    """The other fault the port repairs: the JAX reader (after the
+    reference) scales the point heat map's pixel box by (w, h) once more,
+    which clips it to the image's corner, so its loader finds no valid
+    point-supervised clip; the port's box is the weak mask's pixel box."""
+    from ocpg_tpu.data.datasets import A2DSentencesDataset as JaxA2D
+    from ocpg_tpu_torch.data.datasets import A2DSentencesDataset
+
+    port, jds = A2DSentencesDataset(str(a2d_tree), 3, "point"), JaxA2D(str(a2d_tree), 3, "point")
+    got, want = (d.get_clip(0, random.Random(0)).clip for d in (port, jds))
+    h, w = got.size
+    np.testing.assert_array_equal(want.boxes, [[w, h, w, h]])
+    ys, xs = np.nonzero(got.weak_masks[0])
+    assert len(ys) and np.array_equal(got.weak_masks, want.weak_masks)
+    # weight2mask's box: centre of mass -+ half the extent, in pixel units
+    np.testing.assert_allclose(got.boxes, [[xs.min() - 0.5, ys.min() - 0.5, xs.max() + 0.5,
+                                            ys.max() + 0.5]])
+    with pytest.raises(RuntimeError, match="no valid sample"):
+        next(iter(JaxClipLoader(jds, 1, tokenizer=JaxTokenizer(None, vocab_size=2048),
+                                train=True, seed=0, canvas=(64, 80)).epoch(0)))
+    assert _cli_pieces(a2d_tree, tmp_path, dataset="a2d", supervision="point")[2][
+        "targets"]["valid"].all()
+
+
+# the recipe variants: (dataset, --supervision, other flags)
+RECIPE_VARIANTS = [
+    ("a2d", "box", []),
+    ("a2d", "point", ["--supervision_type", "partialsup"]),
+    ("a2d", "box", ["--supervision_type", "boxinst"]),
+    ("a2d", "full", []),
+    ("ytvos", "box", ["--freeze_video_encoder"]),
+]
+
+
+@pytest.mark.parametrize("dataset,supervision,extra", RECIPE_VARIANTS,
+                         ids=["a2d-box", "a2d-point-partialsup", "a2d-box-boxinst", "a2d-full",
+                              "ytvos-box-freeze_video_encoder"])
+def test_cli_recipe_variant_step_matches_jax_with_carried_weights(
+        tree, a2d_tree, tmp_path, dataset, supervision, extra):
+    """The recipes' variants through the CLI's own flags: the first batch of
+    the A2D reader (valid_indices) with box, point and full supervision,
+    BoxInst's pairwise losses, the frozen video encoder (its gradients
+    still enter the clip's norm, as in JAX)."""
+    _, cfg, batch = _cli_pieces(a2d_tree if dataset == "a2d" else tree, tmp_path, extra,
+                                dataset=dataset, supervision=supervision)
+    assert (cfg.dataset_file, cfg.supervision) == (dataset, supervision)
+    assert cfg.pairwise_loss == ("boxinst" in extra)
+    assert cfg.freeze_video_encoder == ("--freeze_video_encoder" in extra)
+    assert ("valid_indices" in batch) == (dataset == "a2d")
+    metrics, losses = _carried_step_matches_jax(cfg, batch)
+    assert ("loss_pairwise" in losses) == ("loss_pairwise" in metrics) == cfg.pairwise_loss
 
 
 def test_config_overrides_refuse_the_jax_only_fields():

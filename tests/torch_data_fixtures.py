@@ -54,10 +54,12 @@ def write_ytvos_tree(root, n_frames=10, h=64, w=80, seed=3, second_object=False)
     return root
 
 
-def write_a2d_tree(root, h=64, w=80, n_frames=8, split="train"):
+def write_a2d_tree(root, h=64, w=80, n_frames=8, split="train", point_heat=0.4):
     """An A2D-Sentences tree: one mp4 clip of the ``split`` videos,
     annotated frame 4 (1-indexed) with instance 2, reMask stored
-    transposed."""
+    transposed; ``heatPoint`` is ``point_heat`` over the box (below the
+    readers' 0.5 threshold by default, so point supervision finds no weak
+    mask there)."""
     import cv2
     import h5py
 
@@ -79,7 +81,7 @@ def write_a2d_tree(root, h=64, w=80, n_frames=8, split="train"):
         f.create_dataset("instance", data=np.asarray([2]))
         f.create_dataset("reMask", data=mask.T)
         f.create_dataset("heatBBox", data=heat)
-        f.create_dataset("heatPoint", data=heat * 0.5)
+        f.create_dataset("heatPoint", data=np.where(heat > 0, point_heat, 0.0).astype(np.float32))
     with open(root / "text_annotations" / "a2d_annotation.txt", "w") as f:
         f.write("video_id,instance_id,query\n")
         f.write(f"{vid},2,a person running left\n")
