@@ -293,10 +293,9 @@ lines:
                  bench_eval_e2e (its default A2D tree), bench_loader (its
                  default Ref-YTVOS tree, then --dataset davis at the same
                  worker counts),
-                 bench_swin_micro, bench_train_sweep (one R101 point in a
-                 child process, whose launches it reports) and
-                 profile_bench: each record's keys and values, launches per
-                 forward and step as above.
+                 bench_swin_micro and bench_train_sweep (one R101 point in
+                 a child process, whose launches it reports): each record's
+                 keys and values, launches per forward and step as above.
 
 Every launch counter (K1-K7) is reset just before each of the phases serve,
 a2d, train, swin_serve, swin_a2d, swin_train (each of its two runs), swin_t
@@ -3820,13 +3819,12 @@ def phase_bench_scripts(results):
     2 requests), bench_eval_e2e (its default A2D tree, 3 videos),
     bench_loader (its default Ref-YTVOS tree, then --dataset davis, at the
     same worker counts, --step_ms from phase bench), bench_swin_micro,
-    bench_train_sweep (one R101 point in a child process) and
-    profile_bench.  Each run's kernel launches are a path of their own:
+    bench_train_sweep (one R101 point in a child process).  Each run's
+    kernel launches are a path of their own:
     K1 and K2 8 per train step, K1 8 per forward, K7 24 per Swin-B
     forward and once per window-attention part."""
     from ocpg_tpu_torch.scripts import (bench_eval_e2e, bench_loader, bench_serving,
-                                        bench_swin_micro, bench_train, bench_train_sweep,
-                                        profile_bench)
+                                        bench_swin_micro, bench_train, bench_train_sweep)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3908,13 +3906,6 @@ def phase_bench_scripts(results):
         # the child's launches: this process launched nothing for the sweep
         check(counts == counts_of(), f"bench_train_sweep launched {counts} in this process")
         results["paths"]["bench_train_sweep"] = point["launches"]
-
-        rec, counts = timed("profile_bench", lambda: profile_bench.main(
-            ["--iters", "2", "--out", out("profile.md")]))
-        # profile_bench resets the counters after its warm-up: 2 profiled forwards
-        check(counts == rec["launches"] == counts_of(K1=8 * 2)
-              and rec["profile"]["busy_ms"] > 0 and rec["profile"]["classes"].get("msda", 0) > 0,
-              f"profile_bench: launches {counts}, record {rec}")
         log(f"bench_scripts: every measurement script ran [{smi}]")
     finally:
         shutil.rmtree(root, ignore_errors=True)

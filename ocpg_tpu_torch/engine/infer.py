@@ -16,6 +16,13 @@ group's outputs are copied back to pinned host memory behind its forward,
 and the host waits for group i-1's copy only after it has dispatched
 group i, so assembling and uploading a group overlaps the device's work.
 
+Under a profiler, ``run()`` marks its spans (``utils/profiling.py``):
+``ocpg.engine.run``, and per group ``ocpg.engine.dispatch`` (with
+``ocpg.engine.assemble`` and ``ocpg.engine.upload`` inside) and
+``ocpg.engine.drain`` (with ``ocpg.engine.wait`` inside).  Every dispatch
+adds its requests' frames x rows x columns to ``pixels_real`` and its
+canvas, slots x ``clip_len`` x the bucket, to ``pixels_dispatched``.
+
 Usage:
     engine = ClipInferenceEngine(model, clip_len=36)
     results = engine.run(requests)     # list[InferRequest] -> list[np (t,h,w)]
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import sys
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -34,10 +42,16 @@ import torch
 from ..data.loader import normalize_frames
 from ..models.build import resolve_device
 from ..parallel.mesh import gather_rows
+from ..utils.profiling import span
 
 # /64-aligned canvases at the reference inference scale (Resize 360, max
 # 640): landscape (384, 640), square-ish (512, 640), portrait (640, 512)
 DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = ((384, 640), (512, 640), (640, 512))
+
+# pixels (frames x rows x columns) since the last reset (set them to 0 to
+# reset): of the requests dispatched, and of the canvases they ran on
+pixels_real = 0
+pixels_dispatched = 0
 
 
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -121,32 +135,37 @@ class ClipInferenceEngine:
     def _dispatch(self, requests, bucket, group):
         """Assemble, upload and enqueue this rank's rows of one group's
         forward, the gather of the group's outputs and their readback."""
+        global pixels_real, pixels_dispatched
         bh, bw = bucket
         n = self.local_slots
         lo = (self.mesh.rank if self.mesh is not None else 0) * n
-        samples = np.zeros((n, self.clip_len, bh, bw, 3), requests[group[0]].frames.dtype)
-        mask = np.ones((n, self.clip_len, bh, bw), bool)
-        lt = requests[group[0]].text_ids.shape[-1]
-        ids = np.full((n, lt), 1, np.int32)
-        ids[:, 0] = 0
-        attn = np.zeros((n, lt), np.int32)
-        attn[:, 0] = 1
-        sizes = np.ones((n, 2), np.int32)
-        qov = np.full((n,), -1, np.int32)
-        for j, ridx in enumerate(group[lo:lo + n]):
-            r = requests[ridx]
-            t, h, w = r.frames.shape[:3]
-            samples[j, :t, :h, :w] = r.frames
-            mask[j, :t, :h, :w] = False
-            ids[j] = r.text_ids
-            attn[j] = r.text_mask
-            sizes[j] = (h, w)
-            qov[j] = r.query_override
+        with span("ocpg.engine.assemble"):
+            samples = np.zeros((n, self.clip_len, bh, bw, 3), requests[group[0]].frames.dtype)
+            mask = np.ones((n, self.clip_len, bh, bw), bool)
+            lt = requests[group[0]].text_ids.shape[-1]
+            ids = np.full((n, lt), 1, np.int32)
+            ids[:, 0] = 0
+            attn = np.zeros((n, lt), np.int32)
+            attn[:, 0] = 1
+            sizes = np.ones((n, 2), np.int32)
+            qov = np.full((n,), -1, np.int32)
+            for j, ridx in enumerate(group[lo:lo + n]):
+                r = requests[ridx]
+                t, h, w = r.frames.shape[:3]
+                samples[j, :t, :h, :w] = r.frames
+                mask[j, :t, :h, :w] = False
+                ids[j] = r.text_ids
+                attn[j] = r.text_mask
+                sizes[j] = (h, w)
+                qov[j] = r.query_override
+        pixels_real += sum(math.prod(requests[ridx].frames.shape[:3]) for ridx in group)
+        pixels_dispatched += self.slots * self.clip_len * bh * bw
         dev = self.device
-        m = upload(mask, dev)
-        x = normalize_frames(upload(samples, dev), m)
-        out = self.model(x, m, upload(ids, dev), upload(attn, dev), upload(sizes, dev),
-                         query_override=upload(qov, dev))
+        with span("ocpg.engine.upload"):
+            m = upload(mask, dev)
+            x = normalize_frames(upload(samples, dev), m)
+            ids_d, attn_d, sizes_d, qov_d = (upload(a, dev) for a in (ids, attn, sizes, qov))
+        out = self.model(x, m, ids_d, attn_d, sizes_d, query_override=qov_d)
         def gathered(t):
             return readback(t if self.mesh is None else gather_rows(self.mesh, t))
 
@@ -168,6 +187,10 @@ class ClipInferenceEngine:
         cropped to the request's frame count and size."""
         if not requests:
             return []
+        with span("ocpg.engine.run"):
+            return self._run(requests, progress)
+
+    def _run(self, requests, progress):
         wire_dtype = requests[0].frames.dtype
         for i, r in enumerate(requests):
             if r.frames.dtype != wire_dtype:
@@ -208,27 +231,30 @@ class ClipInferenceEngine:
         self.last_canvas = [None] * len(requests)
 
         def drain(group, ret, event):
-            if event is not None:
-                event.synchronize()
-            masks = ret["masks"].numpy()
-            refs = ret["refs"].numpy() if self.want_ref_points else None
-            scores = ret["scores"].numpy() if self.want_query_scores else None
-            for j, ridx in enumerate(group):
-                t, h, w = requests[ridx].frames.shape[:3]
-                results[ridx] = masks[j, :t, 0, :h, :w].astype(np.float32)
-                if refs is not None:
-                    self.last_ref_points[ridx] = refs[j, :t, 0]
-                if scores is not None:
-                    self.last_query_scores[ridx] = scores[j]
-            if progress is not None:
-                progress(len(group))
+            with span("ocpg.engine.drain"):
+                with span("ocpg.engine.wait"):
+                    if event is not None:
+                        event.synchronize()
+                masks = ret["masks"].numpy()
+                refs = ret["refs"].numpy() if self.want_ref_points else None
+                scores = ret["scores"].numpy() if self.want_query_scores else None
+                for j, ridx in enumerate(group):
+                    t, h, w = requests[ridx].frames.shape[:3]
+                    results[ridx] = masks[j, :t, 0, :h, :w].astype(np.float32)
+                    if refs is not None:
+                        self.last_ref_points[ridx] = refs[j, :t, 0]
+                    if scores is not None:
+                        self.last_query_scores[ridx] = scores[j]
+                if progress is not None:
+                    progress(len(group))
 
         inflight = collections.deque()
         for bucket, group in groups:
             self._canvases.add(bucket)
             for ridx in group:
                 self.last_canvas[ridx] = bucket
-            inflight.append((group, *self._dispatch(requests, bucket, group)))
+            with span("ocpg.engine.dispatch"):
+                inflight.append((group, *self._dispatch(requests, bucket, group)))
             if len(inflight) >= self.pipeline_depth:
                 drain(*inflight.popleft())
         while inflight:

@@ -10,6 +10,11 @@ the level-set warmup, advances on every step, skipped ones too; the
 learning-rate schedule counts only the optimizer steps applied
 (``TrainOptimizer.count``).
 
+Under a profiler the call marks its phases (``utils/profiling.py``):
+``ocpg.step`` around it and, inside, ``ocpg.step.upload``, ``ocpg.loss``,
+``ocpg.backward``, ``ocpg.optim.clip``, ``ocpg.step.readback`` (the host
+sync) and ``ocpg.optim.step``; the forward marks its own.
+
 Dropout and the Swin backbones' stochastic depth draw from a
 ``torch.Generator`` on the model's device that the step owns, seeded from
 ``cfg.seed``.  ``deterministic=True`` turns both off (``model.eval()``), as
@@ -52,6 +57,7 @@ from ..data.loader import decompress_batch
 from ..models.criterion import CriterionConfig, compute_criterion
 from ..models.layers import set_dropout_generator
 from ..parallel.mesh import all_reduce_
+from ..utils.profiling import span
 from .optim import TrainOptimizer
 
 
@@ -89,31 +95,41 @@ class TrainStep:
         self.state = {"step": 0}
 
     def __call__(self, batch: Mapping) -> Dict[str, float]:
+        with span("ocpg.step"):
+            return self._step(batch)
+
+    def _step(self, batch: Mapping) -> Dict[str, float]:
         model, optimizer = self.model, self.optimizer
         model.train(not self.deterministic)
-        b = decompress_batch(_to_device(
-            {k: v for k, v in batch.items()
-             if k != "valid_indices" or self.has_valid_indices}, self.device))
+        with span("ocpg.step.upload"):
+            b = decompress_batch(_to_device(
+                {k: v for k, v in batch.items()
+                 if k != "valid_indices" or self.has_valid_indices}, self.device))
         optimizer.zero_grad()
         out = model(b["samples"], b["samples_mask"], b["text_ids"], b["text_mask"],
                     b["targets"]["size"], b.get("valid_indices"),
                     targets=b["targets"], train=True)
-        total, losses = compute_criterion(self.criterion_cfg, self.weight_dict, out,
-                                          b["targets"], self.state["step"], mesh=self.mesh)
-        total.backward()
+        with span("ocpg.loss"):
+            total, losses = compute_criterion(self.criterion_cfg, self.weight_dict, out,
+                                              b["targets"], self.state["step"], mesh=self.mesh)
         mesh = self.mesh if self.mesh is not None and self.mesh.group is not None else None
-        if mesh is not None:
-            optimizer.average_grads_(mesh)
-        grad_norm = optimizer.clip_grads_()
-        loss_values = torch.stack([total.detach(), *(v.detach() for v in losses.values())])
-        if mesh is not None:
-            loss_values = all_reduce_(mesh, loss_values) / mesh.size
-        names = ["loss", "grad_norm", *losses]
-        values = [loss_values[0], grad_norm.to(total.device), *loss_values[1:]]
-        metrics = dict(zip(names, torch.stack(values).tolist()))
+        with span("ocpg.backward"):
+            total.backward()
+            if mesh is not None:
+                optimizer.average_grads_(mesh)
+        with span("ocpg.optim.clip"):
+            grad_norm = optimizer.clip_grads_()
+        with span("ocpg.step.readback"):
+            loss_values = torch.stack([total.detach(), *(v.detach() for v in losses.values())])
+            if mesh is not None:
+                loss_values = all_reduce_(mesh, loss_values) / mesh.size
+            names = ["loss", "grad_norm", *losses]
+            values = [loss_values[0], grad_norm.to(total.device), *loss_values[1:]]
+            metrics = dict(zip(names, torch.stack(values).tolist()))
         finite = bool(np.isfinite(metrics["loss"]))
         if finite:
-            optimizer.step()
+            with span("ocpg.optim.step"):
+                optimizer.step()
         self.state["step"] += 1
         metrics["finite"] = float(finite)
         if self.debug_images:

@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from ..config import OCPGConfig
+from ..utils.profiling import span
 from .backbone_video_swin import WindowAttention3D
 from .criterion import CriterionConfig
 from .deformable_transformer import offset_bias
@@ -186,10 +187,12 @@ def build_model(cfg: OCPGConfig, device: Optional[Union[str, torch.device]] = No
                 generator: Optional[torch.Generator] = None) -> OCPG:
     """The model on ``device`` (default: the GPU), in eval mode, with
     random weights drawn on the CPU from ``generator`` (default: seeded with
-    ``cfg.seed``), so every device gets the same weights."""
+    ``cfg.seed``), so every device gets the same weights.  The construction
+    and the draw are the kept span ``ocpg.init`` (``utils/profiling.py``)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    model = OCPG(cfg)
-    init_params(model, generator)
+    with span("ocpg.init", keep=True):
+        model = OCPG(cfg)
+        init_params(model, generator)
     return model.to(dev).eval()

@@ -24,6 +24,12 @@ and ``samples_mask (B, T, H, W)`` (True = padding).  Inside, feature maps
 are NCHW.  With ``compute_dtype="bfloat16"`` the forward runs under
 ``torch.autocast``; the heads, the sampling math, LFM and the level-set
 features stay float32.
+
+Under a profiler the forward marks ``ocpg.forward`` and, inside it, its
+stages (``utils/profiling.py``): ``ocpg.backbone`` (with the level masks
+and positions), ``ocpg.text`` (the encoder, its projections and
+positions), ``ocpg.fusion`` (the level loop), ``ocpg.transformer`` and
+``ocpg.heads`` (everything after it; in training ``ocpg.matcher`` inside).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch.nn as nn
 
 from ..config import OCPGConfig
 from ..ops.image import bicubic_resize, bilinear_resize, nearest_resize, pixel_shuffle
+from ..utils.profiling import span
 from .backbone_resnet import build_resnet
 from .backbone_swin2d import build_swin_2d
 from .backbone_video_swin import build_video_swin
@@ -123,8 +130,9 @@ class OCPG(nn.Module):
                 train: bool = False) -> Dict[str, torch.Tensor]:
         if train and targets is None:
             raise ValueError("the train forward needs targets")
-        with torch.autocast(device_type=samples.device.type, dtype=torch.bfloat16,
-                            enabled=self.compute_dtype == torch.bfloat16), \
+        with span("ocpg.forward"), \
+                torch.autocast(device_type=samples.device.type, dtype=torch.bfloat16,
+                               enabled=self.compute_dtype == torch.bfloat16), \
                 torch.set_grad_enabled(train and torch.is_grad_enabled()):
             return self._forward(samples, samples_mask, text_ids, text_attn_mask,
                                  sizes, valid_indices, query_override,
@@ -139,158 +147,163 @@ class OCPG(nn.Module):
         dev = samples.device
 
         # ---------------- visual backbone (frames in the batch dim) ----------
-        frames = samples.reshape(b * t_in, H, W, 3).permute(0, 3, 1, 2)
-        frames_mask = samples_mask.reshape(b * t_in, H, W)
-        if self.cfg.backbone.startswith("resnet"):
-            feats = list(self.backbone(frames))
-        else:   # Swin: the video variant attends across the clip's t_in frames
-            feats = list(self.backbone(frames, num_frames=t_in))
-        if valid_indices is not None:        # A2D / JHMDB: one annotated frame
-            sel = torch.arange(b, device=dev) * t_in + valid_indices.long()
-            feats = [f[sel] for f in feats]
-            frames = frames[sel]
-            frames_mask = frames_mask[sel]
-            t = 1
-        else:
-            t = t_in
-        bt = b * t
+        with span("ocpg.backbone"):
+            frames = samples.reshape(b * t_in, H, W, 3).permute(0, 3, 1, 2)
+            frames_mask = samples_mask.reshape(b * t_in, H, W)
+            if self.cfg.backbone.startswith("resnet"):
+                feats = list(self.backbone(frames))
+            else:   # Swin: the video variant attends across the clip's t_in frames
+                feats = list(self.backbone(frames, num_frames=t_in))
+            if valid_indices is not None:        # A2D / JHMDB: one annotated frame
+                sel = torch.arange(b, device=dev) * t_in + valid_indices.long()
+                feats = [f[sel] for f in feats]
+                frames = frames[sel]
+                frames_mask = frames_mask[sel]
+                t = 1
+            else:
+                t = t_in
+            bt = b * t
 
-        def mask_at(size):
-            return nearest_resize(frames_mask[:, None].float(), size)[:, 0] > 0.5
+            def mask_at(size):
+                return nearest_resize(frames_mask[:, None].float(), size)[:, 0] > 0.5
 
-        feat_masks = [mask_at(tuple(f.shape[-2:])) for f in feats]
-        visual_pos = [position_embedding_sine_2d(m, num_pos_feats=hidden // 2)
-                      for m in feat_masks]
+            feat_masks = [mask_at(tuple(f.shape[-2:])) for f in feats]
+            visual_pos = [position_embedding_sine_2d(m, num_pos_feats=hidden // 2)
+                          for m in feat_masks]
 
         # ---------------- text encoder (no gradient when frozen) ------------
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and not cfg.freeze_text_encoder):
-            text_feat, text_pooled = self.text_encoder(text_ids, text_attn_mask)
-        text_word = self.text_proj(text_feat)                     # (B, Lt, C)
-        text_sentence = self.sentence_proj(text_pooled)           # (B, C)
-        text_pad_mask = text_attn_mask == 0
-        text_pos = position_embedding_sine_1d(text_pad_mask, num_pos_feats=hidden)
+        with span("ocpg.text"):
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not cfg.freeze_text_encoder):
+                text_feat, text_pooled = self.text_encoder(text_ids, text_attn_mask)
+            text_word = self.text_proj(text_feat)                     # (B, Lt, C)
+            text_sentence = self.sentence_proj(text_pooled)           # (B, C)
+            text_pad_mask = text_attn_mask == 0
+            text_pos = position_embedding_sine_1d(text_pad_mask, num_pos_feats=hidden)
 
         # ---------------- spectrum-guided cross-modal fusion ----------------
-        srcs, masks_l, poses = [], [], []
-        high_filter = None
-        for l in range(cfg.num_feature_levels):
-            if l < NUM_BACKBONE_LEVELS:
-                src = getattr(self, f"input_proj_{l}")(feats[-NUM_BACKBONE_LEVELS + l])
-                lvl_mask = feat_masks[-NUM_BACKBONE_LEVELS + l]
-                pos_l = visual_pos[-NUM_BACKBONE_LEVELS + l]
-            else:
-                base = feats[-1] if l == NUM_BACKBONE_LEVELS else srcs[-1]
-                src = getattr(self, f"input_proj_{l}")(base)
-                lvl_mask = mask_at(tuple(src.shape[-2:]))
-                pos_l = position_embedding_sine_2d(lvl_mask, num_pos_feats=hidden // 2)
-            src = getattr(self, f"input_proj_gn_{l}")(src)
-            n_, c_, h_, w_ = src.shape
-            src, high_filter = getattr(self, f"input_fft_{l}")(src, high_filter)
-            # (b t) c h w -> b (t h w) c: a video's frame tokens fuse with its text
-            vis = src.flatten(2).transpose(1, 2).reshape(b, t * h_ * w_, c_)
-            vis = self.fusion_module(vis, text_word, text_pad_mask, text_pos)
-            src = vis.reshape(n_, h_ * w_, c_).transpose(1, 2).reshape(n_, c_, h_, w_)
-            src, high_filter = getattr(self, f"input_fft_post_{l}")(src, high_filter)
-            srcs.append(src)
-            masks_l.append(lvl_mask)
-            poses.append(pos_l)
+        with span("ocpg.fusion"):
+            srcs, masks_l, poses = [], [], []
+            high_filter = None
+            for l in range(cfg.num_feature_levels):
+                if l < NUM_BACKBONE_LEVELS:
+                    src = getattr(self, f"input_proj_{l}")(feats[-NUM_BACKBONE_LEVELS + l])
+                    lvl_mask = feat_masks[-NUM_BACKBONE_LEVELS + l]
+                    pos_l = visual_pos[-NUM_BACKBONE_LEVELS + l]
+                else:
+                    base = feats[-1] if l == NUM_BACKBONE_LEVELS else srcs[-1]
+                    src = getattr(self, f"input_proj_{l}")(base)
+                    lvl_mask = mask_at(tuple(src.shape[-2:]))
+                    pos_l = position_embedding_sine_2d(lvl_mask, num_pos_feats=hidden // 2)
+                src = getattr(self, f"input_proj_gn_{l}")(src)
+                n_, c_, h_, w_ = src.shape
+                src, high_filter = getattr(self, f"input_fft_{l}")(src, high_filter)
+                # (b t) c h w -> b (t h w) c: a video's frame tokens fuse with its text
+                vis = src.flatten(2).transpose(1, 2).reshape(b, t * h_ * w_, c_)
+                vis = self.fusion_module(vis, text_word, text_pad_mask, text_pos)
+                src = vis.reshape(n_, h_ * w_, c_).transpose(1, 2).reshape(n_, c_, h_, w_)
+                src, high_filter = getattr(self, f"input_fft_post_{l}")(src, high_filter)
+                srcs.append(src)
+                masks_l.append(lvl_mask)
+                poses.append(pos_l)
 
         # ---------------- deformable transformer ----------------
-        tgt = text_sentence[:, None, :].repeat(1, t, 1).reshape(bt, 1, hidden)
-        tgt = tgt.expand(bt, nq, hidden)
-        tr = self.transformer(srcs, tgt, masks_l, poses, self.query_embed)
-        hs = tr["hs"]                                   # (L, BT, Q, C)
-        ldec = hs.shape[0]
-        inter_references = tr["inter_references"]       # (L, BT, Q, 4)
-        memory = tr["memory_features"]                  # [8x, 16x, 32x] NCHW
+        with span("ocpg.transformer"):
+            tgt = text_sentence[:, None, :].repeat(1, t, 1).reshape(bt, 1, hidden)
+            tgt = tgt.expand(bt, nq, hidden)
+            tr = self.transformer(srcs, tgt, masks_l, poses, self.query_embed)
+            hs = tr["hs"]                                   # (L, BT, Q, C)
+            ldec = hs.shape[0]
+            inter_references = tr["inter_references"]       # (L, BT, Q, 4)
+            memory = tr["memory_features"]                  # [8x, 16x, 32x] NCHW
 
         # ---------------- class / box heads ----------------
-        with float32_island(hs):
-            outputs_class = torch.stack([
-                getattr(self, f"class_embed_{lvl}")(hs[lvl].float()) for lvl in range(ldec)])
-            if cfg.with_box_refine:
-                outputs_coord = tr["inter_coords"]
-            else:
-                coords = []
-                for lvl in range(ldec):
-                    reference = tr["init_reference"] if lvl == 0 else inter_references[lvl - 1]
-                    tmp = getattr(self, f"bbox_embed_{lvl}")(hs[lvl].float())
-                    tmp = torch.cat([tmp[..., :2] + inverse_sigmoid(reference),
-                                     tmp[..., 2:]], -1)
-                    coords.append(torch.sigmoid(tmp))
-                outputs_coord = torch.stack(coords)
-        outputs_class = outputs_class.reshape(ldec, b, t, nq, cfg.num_classes)
-        outputs_coord = outputs_coord.reshape(ldec, b, t, nq, 4)
-        out: Dict[str, torch.Tensor] = {
-            "pred_logits": outputs_class[-1],
-            "pred_boxes": outputs_coord[-1],
-        }
-
-        # ---------------- segmentation ----------------
-        h8, w8 = memory[0].shape[-2:]
-        # bicubic in the compute dtype, float32 from the sum onward
-        dtype = self.compute_dtype
-        memory_fusion = sum(bicubic_resize(x.to(dtype), (h8, w8)).float() for x in memory)
-        mask_ch = cfg.dynamic_mask_channels
-        # eval reads the last layer's patches only; train every layer's
-        head_lvls = range(ldec) if targets is not None else [ldec - 1]
-        patches = []                                           # (B, T, Q, h8, w8, 16)
-        with float32_island(hs):
-            scale_wh = torch.stack([sizes[:, 1], sizes[:, 0]], -1).float()    # (B, 2) xy
-            locations = compute_locations(h8, w8, stride=8, device=dev)
-            for lvl in head_lvls:
-                params = self.controller(hs[lvl].float()).reshape(bt, nq, -1)
-                refs = inter_references[lvl][..., :2].reshape(b, t, nq, 2)
-                refs = refs * scale_wh[:, None, None, :]
-                if cfg.rel_coord:
-                    rel = refs[:, :, :, None, None, :] - locations[None, None, None]
-                    rel_g = rel.reshape(bt, nq, h8, w8, 2)
+        with span("ocpg.heads"):
+            with float32_island(hs):
+                outputs_class = torch.stack([
+                    getattr(self, f"class_embed_{lvl}")(hs[lvl].float()) for lvl in range(ldec)])
+                if cfg.with_box_refine:
+                    outputs_coord = tr["inter_coords"]
                 else:
-                    rel_g = torch.zeros((bt, nq, h8, w8, 2), device=dev)
-                patch = apply_dynamic_conv_shared(
-                    memory_fusion.permute(0, 2, 3, 1), rel_g, params, mask_ch,
-                    self.weight_nums, self.bias_nums)         # (BT, Q, h8, w8, 16)
-                patches.append(patch.reshape(b, t, nq, h8, w8, mask_ch))
-        patch = patches[-1]
-        feat_4x, feat_8x = feats[0], feats[1]
+                    coords = []
+                    for lvl in range(ldec):
+                        reference = tr["init_reference"] if lvl == 0 else inter_references[lvl - 1]
+                        tmp = getattr(self, f"bbox_embed_{lvl}")(hs[lvl].float())
+                        tmp = torch.cat([tmp[..., :2] + inverse_sigmoid(reference),
+                                         tmp[..., 2:]], -1)
+                        coords.append(torch.sigmoid(tmp))
+                    outputs_coord = torch.stack(coords)
+            outputs_class = outputs_class.reshape(ldec, b, t, nq, cfg.num_classes)
+            outputs_coord = outputs_coord.reshape(ldec, b, t, nq, 4)
+            out: Dict[str, torch.Tensor] = {
+                "pred_logits": outputs_class[-1],
+                "pred_boxes": outputs_coord[-1],
+            }
 
-        if targets is not None:
-            return self._train_outputs(out, targets, outputs_class, outputs_coord, patches,
-                                       memory_fusion, text_sentence, frames, feat_4x,
-                                       feat_8x, (b, t, H, W))
+            # ---------------- segmentation ----------------
+            h8, w8 = memory[0].shape[-2:]
+            # bicubic in the compute dtype, float32 from the sum onward
+            dtype = self.compute_dtype
+            memory_fusion = sum(bicubic_resize(x.to(dtype), (h8, w8)).float() for x in memory)
+            mask_ch = cfg.dynamic_mask_channels
+            # eval reads the last layer's patches only; train every layer's
+            head_lvls = range(ldec) if targets is not None else [ldec - 1]
+            patches = []                                           # (B, T, Q, h8, w8, 16)
+            with float32_island(hs):
+                scale_wh = torch.stack([sizes[:, 1], sizes[:, 0]], -1).float()    # (B, 2) xy
+                locations = compute_locations(h8, w8, stride=8, device=dev)
+                for lvl in head_lvls:
+                    params = self.controller(hs[lvl].float()).reshape(bt, nq, -1)
+                    refs = inter_references[lvl][..., :2].reshape(b, t, nq, 2)
+                    refs = refs * scale_wh[:, None, None, :]
+                    if cfg.rel_coord:
+                        rel = refs[:, :, :, None, None, :] - locations[None, None, None]
+                        rel_g = rel.reshape(bt, nq, h8, w8, 2)
+                    else:
+                        rel_g = torch.zeros((bt, nq, h8, w8, 2), device=dev)
+                    patch = apply_dynamic_conv_shared(
+                        memory_fusion.permute(0, 2, 3, 1), rel_g, params, mask_ch,
+                        self.weight_nums, self.bias_nums)         # (BT, Q, h8, w8, 16)
+                    patches.append(patch.reshape(b, t, nq, h8, w8, mask_ch))
+            patch = patches[-1]
+            feat_4x, feat_8x = feats[0], feats[1]
 
-        if cfg.dataset_file not in ("a2d", "jhmdb") and "refcoco" not in cfg.dataset_file:
-            # DAVIS / YTVOS: the best query by its mean score over the valid
-            # (not wholly padded) frames
-            scores = torch.sigmoid(out["pred_logits"].float())               # (B,T,Q,K)
-            frame_ok = 1.0 - samples_mask.reshape(b, t, -1).all(-1).float()
-            fv = frame_ok[:, :, None, None]
-            mean_scores = (scores * fv).sum(1) / fv.sum(1).clamp(min=1.0)
-            out["query_scores"] = mean_scores                                # (B,Q,K)
-            out["query_frames"] = fv.sum(1)[:, 0, 0]                         # (B,)
-            best_q = mean_scores.max(-1).values.argmax(-1)                   # (B,)
-            if query_override is not None:
-                qov = query_override.to(device=dev, dtype=best_q.dtype)
-                best_q = torch.where(qov >= 0, qov, best_q)
-            out["pred_logits"] = _gather_query(out["pred_logits"], best_q)
-            out["pred_boxes"] = _gather_query(out["pred_boxes"], best_q)
-            refs_pen = inter_references[-2][..., :2].reshape(b, t, nq, 2)
-            out["reference_points"] = _gather_query(refs_pen, best_q)
-            psel = _gather_query(patch, best_q)[:, :, 0]                     # (B,T,h8,w8,16)
-            psel = psel.reshape(bt, h8, w8, mask_ch).permute(0, 3, 1, 2)
-            refined = self.mask_refine(psel.to(dtype), feat_4x, feat_8x)     # (BT,1,h4,w4)
+            if targets is not None:
+                return self._train_outputs(out, targets, outputs_class, outputs_coord, patches,
+                                           memory_fusion, text_sentence, frames, feat_4x,
+                                           feat_8x, (b, t, H, W))
+
+            if cfg.dataset_file not in ("a2d", "jhmdb") and "refcoco" not in cfg.dataset_file:
+                # DAVIS / YTVOS: the best query by its mean score over the valid
+                # (not wholly padded) frames
+                scores = torch.sigmoid(out["pred_logits"].float())               # (B,T,Q,K)
+                frame_ok = 1.0 - samples_mask.reshape(b, t, -1).all(-1).float()
+                fv = frame_ok[:, :, None, None]
+                mean_scores = (scores * fv).sum(1) / fv.sum(1).clamp(min=1.0)
+                out["query_scores"] = mean_scores                                # (B,Q,K)
+                out["query_frames"] = fv.sum(1)[:, 0, 0]                         # (B,)
+                best_q = mean_scores.max(-1).values.argmax(-1)                   # (B,)
+                if query_override is not None:
+                    qov = query_override.to(device=dev, dtype=best_q.dtype)
+                    best_q = torch.where(qov >= 0, qov, best_q)
+                out["pred_logits"] = _gather_query(out["pred_logits"], best_q)
+                out["pred_boxes"] = _gather_query(out["pred_boxes"], best_q)
+                refs_pen = inter_references[-2][..., :2].reshape(b, t, nq, 2)
+                out["reference_points"] = _gather_query(refs_pen, best_q)
+                psel = _gather_query(patch, best_q)[:, :, 0]                     # (B,T,h8,w8,16)
+                psel = psel.reshape(bt, h8, w8, mask_ch).permute(0, 3, 1, 2)
+                refined = self.mask_refine(psel.to(dtype), feat_4x, feat_8x)     # (BT,1,h4,w4)
+                full = nearest_resize(refined.float(), (H, W))[:, 0]
+                out["pred_masks"] = full.reshape(b, t, 1, H, W)
+                return out
+
+            # A2D / JHMDB / RefCOCO: refine every query; the backbone features
+            # are shared by the Q queries of each (b, t) group
+            patch_q = patch.reshape(bt * nq, h8, w8, mask_ch).permute(0, 3, 1, 2)
+            refined = self.mask_refine(patch_q.to(dtype), feat_4x, feat_8x, queries=nq)
             full = nearest_resize(refined.float(), (H, W))[:, 0]
-            out["pred_masks"] = full.reshape(b, t, 1, H, W)
+            out["pred_masks"] = full.reshape(b, t, nq, H, W)
             return out
-
-        # A2D / JHMDB / RefCOCO: refine every query; the backbone features
-        # are shared by the Q queries of each (b, t) group
-        patch_q = patch.reshape(bt * nq, h8, w8, mask_ch).permute(0, 3, 1, 2)
-        refined = self.mask_refine(patch_q.to(dtype), feat_4x, feat_8x, queries=nq)
-        full = nearest_resize(refined.float(), (H, W))[:, 0]
-        out["pred_masks"] = full.reshape(b, t, nq, H, W)
-        return out
 
     def _train_outputs(self, out, targets, outputs_class, outputs_coord, patches,
                        memory_fusion, text_sentence, frames, feat_4x, feat_8x, dims):
@@ -306,10 +319,11 @@ class OCPG(nn.Module):
         # pixel-shuffled patch logits at 1/2 resolution: the matcher's input
         formatcher = [pixel_shuffle(p.reshape(bt * nq, h8, w8, mask_ch).permute(0, 3, 1, 2),
                                     4)[:, 0].reshape(b, t, nq, h2, w2) for p in patches]
-        matched = torch.stack([
-            match(self.matcher_cfg, outputs_class[lvl], outputs_coord[lvl], formatcher[lvl],
-                  targets["labels"], targets["boxes"], targets["masks"], targets["valid"])
-            for lvl in range(ldec)])                                       # (L, B)
+        with span("ocpg.matcher"):
+            matched = torch.stack([
+                match(self.matcher_cfg, outputs_class[lvl], outputs_coord[lvl], formatcher[lvl],
+                      targets["labels"], targets["boxes"], targets["masks"], targets["valid"])
+                for lvl in range(ldec)])                                   # (L, B)
 
         # level-set targets: [frame, 8 learned channels, text similarity]
         with float32_island(memory_fusion):

@@ -1,5 +1,37 @@
 """Tracing and timing hooks: counterpart of ``ocpg_tpu/utils/profiling.py``.
 
+``span(name)`` marks a layer boundary inside the program: while a
+``torch.profiler`` profile is active it is a ``record_function`` range, so
+the span lands in the profiler's Chrome trace beside the kernels, copies
+and runtime calls, on the profiler's clock; with no profiler active it is
+one shared no-op context and records nothing (about one C call: keep spans
+out of per-element and per-parameter loops).  There is no switch: tracing
+is on exactly while a profiler is, as under ``trace(logdir)`` below.
+``span(name, keep=True)`` also appends the span's wall seconds to ``kept``
+(always, profiler or not) for set-up phases that run before any profiler;
+``kept_seconds(name)`` sums them.
+
+The spans, all named ``ocpg.*`` (no name holds another stage's name, so a
+reader may match the stages by substring):
+
+* ``engine/train.py::TrainStep``: ``ocpg.step`` (the call), inside it
+  ``ocpg.step.upload``, ``ocpg.loss``, ``ocpg.backward``,
+  ``ocpg.optim.clip``, ``ocpg.step.readback`` (the step's host sync) and
+  ``ocpg.optim.step``;
+* ``models/ocpg.py``: ``ocpg.forward``, inside it ``ocpg.backbone``,
+  ``ocpg.text``, ``ocpg.fusion``, ``ocpg.transformer`` and ``ocpg.heads``
+  (``ocpg.matcher`` inside the heads in training);
+* ``engine/infer.py::ClipInferenceEngine``: ``ocpg.engine.run`` (the
+  call), per dispatch group ``ocpg.engine.dispatch`` (inside it
+  ``ocpg.engine.assemble`` and ``ocpg.engine.upload``) and
+  ``ocpg.engine.drain`` (inside it ``ocpg.engine.wait``);
+* ``models/build.py::build_model``: ``ocpg.init``, kept.
+
+Names carry no ids.  Spans of one request are tied by their order: with
+one slot a dispatch group is one request, and the i-th
+``ocpg.engine.dispatch`` and the i-th ``ocpg.engine.drain`` inside one
+``ocpg.engine.run`` belong to its i-th group.
+
 ``trace(logdir)`` records the enclosed steps with ``torch.profiler`` (the
 host and, on a GPU, the device) and writes a Chrome trace, viewable in
 Perfetto or ``chrome://tracing``; ``StepTimer`` splits wall time between
@@ -7,7 +39,7 @@ waiting for data and the step; ``device_memory_stats`` reads the CUDA
 allocator's peak and in-use memory per device.
 
 The measurement helpers of ``chip_smoke.py`` and the bench drivers
-(``ocpg_tpu_torch/scripts/bench*.py``, ``profile_bench.py``), all on a GPU:
+(``ocpg_tpu_torch/scripts/bench*.py``), all on a GPU:
 
 * ``cuda_times(fn, iters)``: device ms per call (the calls queue behind a
   sleep kernel, so CUDA events time the device, not the host's launch
@@ -17,8 +49,11 @@ The measurement helpers of ``chip_smoke.py`` and the bench drivers
   kernel, and the device-busy share of the wall time.
 * ``device_ms_under(events, name)``: the device ms of the kernels launched
   under the outermost CPU ranges so named.
-* ``LAUNCH_COUNTERS``, ``reset_launch_counts``, ``launch_counts``: the
-  launch counters of the port's kernels K1-K7.
+
+The counters, module-level integers where the work happens (set them to 0
+to reset), listed by ``LAUNCH_COUNTERS`` (the launches of the port's
+kernels K1-K7; ``reset_launch_counts``, ``launch_counts``) and
+``ENGINE_COUNTERS`` (the engine's real and dispatched pixels).
 """
 
 from __future__ import annotations
@@ -27,7 +62,39 @@ import contextlib
 import importlib
 import os
 import time
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
+
+import torch
+
+# one shared context for every span while no profiler is active
+_NO_SPAN = contextlib.nullcontext()
+
+# (name, wall seconds) of every kept span of this process, in order
+kept: List[Tuple[str, float]] = []
+
+
+@contextlib.contextmanager
+def _kept_span(name: str) -> Iterator[None]:
+    t0 = time.perf_counter()
+    with span(name):
+        yield
+    kept.append((name, time.perf_counter() - t0))
+
+
+def span(name: str, keep: bool = False):
+    """A ``record_function`` range named ``name`` while a profiler is active,
+    else the shared no-op; ``keep`` also appends its wall seconds to ``kept``."""
+    if keep:
+        return _kept_span(name)
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def kept_seconds(name: str) -> Optional[float]:
+    """The summed wall seconds of the kept spans named ``name`` (None if none)."""
+    secs = [s for n, s in kept if n == name]
+    return sum(secs) if secs else None
 
 
 @contextlib.contextmanager
@@ -37,7 +104,6 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
     if not logdir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -80,8 +146,6 @@ class StepTimer:
 def device_memory_stats() -> Dict[str, Dict[str, float]]:
     """Per CUDA device, the allocator's peak and in-use memory in GiB (the
     reference's max-memory print); empty without a GPU."""
-    import torch
-
     out = {}
     if not torch.cuda.is_available():
         return out
@@ -103,8 +167,6 @@ def cuda_times(fn: Callable[[], object], iters: int, warmup: int = 3) -> Tuple[f
     queue up behind a sleep kernel that outlasts the host's enqueueing, so
     the CUDA events around them time the device, not the rate at which the
     host launches; the host's enqueue time per call is returned beside it."""
-    import torch
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -160,7 +222,6 @@ def profile_run(label: str, fn: Callable[[], object]) -> Optional[Dict]:
     launches)}, "wattn_bwd_ms": the device ms of the kernels launched under
     K7's Function backward (its plain recompute)}, or None when the
     profiler recorded no device time (a CPU run)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
@@ -231,12 +292,25 @@ LAUNCH_COUNTERS = (("K1", "ocpg_tpu_torch.ops.ms_deform_attn", "launches"),
                    ("K6", "ocpg_tpu_torch.ops.ms_deform_attn_variants", "fk_launches"),
                    ("K7", "ocpg_tpu_torch.ops.window_attention", "launches"))
 
+# the engine's pixel counters: frames x rows x columns of the requests it
+# dispatched, and of the canvases it ran them on (slots x clip_len x bucket)
+ENGINE_COUNTERS = (("pixels_real", "ocpg_tpu_torch.engine.infer", "pixels_real"),
+                   ("pixels_dispatched", "ocpg_tpu_torch.engine.infer", "pixels_dispatched"))
 
-def reset_launch_counts() -> None:
-    for _, module, attr in LAUNCH_COUNTERS:
+
+def reset_counts(table) -> None:
+    for _, module, attr in table:
         setattr(importlib.import_module(module), attr, 0)
 
 
-def launch_counts() -> Dict[str, int]:
+def read_counts(table) -> Dict[str, int]:
     return {name: getattr(importlib.import_module(module), attr)
-            for name, module, attr in LAUNCH_COUNTERS}
+            for name, module, attr in table}
+
+
+def reset_launch_counts() -> None:
+    reset_counts(LAUNCH_COUNTERS)
+
+
+def launch_counts() -> Dict[str, int]:
+    return read_counts(LAUNCH_COUNTERS)

@@ -1,7 +1,7 @@
-"""The port's measurement drivers (``ocpg_tpu_torch/scripts/bench_*.py``,
-``profile_bench.py``) and the profiling helpers on the CPU, against the JAX
-scripts of ``scripts/`` (loaded from their files, never edited, never
-run whole: they would write their records at the repo root).
+"""The port's measurement drivers (``ocpg_tpu_torch/scripts/bench_*.py``)
+and the profiling helpers on the CPU, against the JAX scripts of
+``scripts/`` (loaded from their files, never edited, never run whole:
+they would write their records at the repo root).
 
 * The trees: ``bench_eval_e2e.build_a2d_tree`` and ``bench_loader.
   build_tree`` write the JAX scripts' files at the same sizes: the mp4
@@ -18,9 +18,9 @@ run whole: they would write their records at the repo root).
   fake child process, with the larger batches at its T skipped.
 * ``utils/profiling``: ``kernel_class`` on a table of CUDA kernel names;
   ``profile_run`` on the CPU reports no device time.
-* ``profile_bench.report`` on a profile; ``bench_swin_micro``: its serving
-  calls are the JAX Swin's windows and masks, and its window-attention
-  parts (K7's dispatcher, the plain version, SDPA) and bias layouts agree.
+* ``bench_swin_micro``: its serving calls are the JAX Swin's windows and
+  masks, and its window-attention parts (K7's dispatcher, the plain
+  version, SDPA) and bias layouts agree.
 """
 import argparse
 import ast
@@ -42,8 +42,7 @@ from ocpg_tpu_torch.data import loader as loader_module
 from ocpg_tpu_torch.data.datasets import build_dataset
 from ocpg_tpu_torch.data.loader import ClipLoader
 from ocpg_tpu_torch.scripts import (bench_eval_e2e, bench_loader, bench_serving,
-                                    bench_swin_micro, bench_train, bench_train_sweep,
-                                    profile_bench)
+                                    bench_swin_micro, bench_train, bench_train_sweep)
 from ocpg_tpu_torch.utils import profiling
 
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -283,16 +282,6 @@ def test_kernel_classes(name, cls):
 
 def test_profile_run_on_the_cpu_reports_no_device_time():
     assert profiling.profile_run("cpu", lambda: torch.ones(4) @ torch.ones(4)) is None
-
-
-def test_profile_report():
-    prof = {"busy_ms": 40.0, "wall_ms": 100.0, "classes": {"msda": 10.0, "conv": 30.0},
-            "kernels": {"msda_fwd_kernel": (10.0, 16), "implicit_conv": (30.0, 200)}}
-    lines = profile_bench.report(prof, iters=2, frames=5)
-    assert lines[0].startswith("wall 100.00 ms over 2 forwards, device busy 40.00 ms (40.0%")
-    assert "| conv | 30.00 | 75.0% |" in lines and "| msda | 10.00 | 25.0% |" in lines
-    assert lines.index("| conv | 30.00 | 75.0% |") < lines.index("| msda | 10.00 | 25.0% |")
-    assert "| `implicit_conv` | 30.00 | 200 | 75.0% |" in lines
 
 
 # ------------------------------------------------------------- swin micro --

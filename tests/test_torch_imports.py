@@ -58,7 +58,7 @@ def test_port_has_the_slice_modules():
 # the measurement drivers and the profiling helpers
 MEASUREMENT = ("scripts.bench", "scripts.bench_train", "scripts.bench_serving",
                "scripts.bench_eval_e2e", "scripts.bench_loader", "scripts.bench_swin_micro",
-               "scripts.bench_train_sweep", "scripts.profile_bench", "utils.profiling")
+               "scripts.bench_train_sweep", "utils.profiling")
 
 # modules of the data path, the CLIs and tools, the eval engine, the
 # metrics, the pseudo-label generator, the scripts and the utilities
