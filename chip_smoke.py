@@ -178,7 +178,8 @@ lines:
                  its defaults (clip_len 36, exact canvases, f32) on a seeded
                  valid split (one video of 36 frames at 720 x 1280, two
                  objects, eight expressions), then ``cli.eval_davis`` on each
-                 annotator: K1 8 and K7 24 per dispatch, every palette PNG at
+                 annotator: K1 8 per dispatch, K7 24 per backbone run (one:
+                 the chunk's other seven requests reuse it), every palette PNG at
                  720 x 1280, both CSVs, J&F finite; requests/s and the share
                  of the run outside the engine.
 17. infer_ytvos -- the Ref-YTVOS inference CLI (``cli.infer_ytvos``, R101 at
@@ -2340,7 +2341,8 @@ def phase_infer_davis(results):
     defaults (clip_len 36, exact buckets, f32) on a seeded valid split of
     one video of 36 frames at 720 x 1280 with two objects and eight
     expressions, then ``python -m ocpg_tpu_torch.cli.eval_davis`` on each
-    annotator's PNGs: K1 8 and K7 24 per dispatch, one palette PNG per
+    annotator's PNGs: K1 8 per dispatch, K7 24 per backbone run (one: the
+    chunk's other seven requests reuse its results), one palette PNG per
     annotator and frame at 720 x 1280, both CSVs, J&F finite.  Requests/s
     and the share of the run outside the engine."""
     from ocpg_tpu_torch.cli import eval_davis as eval_davis_cli
@@ -2370,6 +2372,7 @@ def phase_infer_davis(results):
         try:
             with timed_calls(infer_engine.ClipInferenceEngine, ("run",), secs):
                 reset_counts()
+                infer_engine.backbone_runs = infer_engine.backbone_reused = 0
                 t0 = time.perf_counter()
                 infer_davis.main(["--davis_path", tree, "--output_dir", out,
                                   "--backbone", "video_swin_b_p4w7"])
@@ -2381,7 +2384,11 @@ def phase_infer_davis(results):
         (engine,) = engines
         dispatches = engine.n_batches
         check(dispatches == 8, f"infer_davis: {dispatches} dispatches, want 8 (2 x 4 x 1 chunk)")
-        check(counts == counts_of(K1=8 * dispatches, K7=SWIN_B_BLOCKS * dispatches),
+        runs = infer_engine.backbone_runs
+        check(runs == 1 and infer_engine.backbone_reused == 7,
+              f"infer_davis: {runs} backbone runs and {infer_engine.backbone_reused} reused, "
+              "want 1 and 7")
+        check(counts == counts_of(K1=8 * dispatches, K7=SWIN_B_BLOCKS * runs),
               f"infer_davis: {dispatches} dispatches launched {counts}")
         results["paths"]["infer_davis"] = counts
         from PIL import Image
@@ -3600,14 +3607,15 @@ def recipe_env(name, trees):
 
 class RecipeProbe:
     """While attached: the train steps and the model's train and eval
-    forwards; the first step's target maps and metric names; the backbone
+    forwards (and the eval forwards that reused the engine's backbone
+    results); the first step's target maps and metric names; the backbone
     before the first step and the model that trained; the steps of the
     checkpoints saved, which are written only with ``write_checkpoints``
     (the machine's disk takes 45 GiB a call, and a full-width checkpoint
     with AdamW's moments is 1.1-1.9 GB)."""
 
     def __init__(self, write_checkpoints):
-        self.steps = self.train_forwards = self.eval_forwards = 0
+        self.steps = self.train_forwards = self.eval_forwards = self.reused_forwards = 0
         self.first, self.metric_keys, self.losses = None, None, []
         self.backbone0, self.model = None, None
         self.write_checkpoints, self.saved = write_checkpoints, []
@@ -3644,6 +3652,8 @@ class RecipeProbe:
                 probe.train_forwards += 1
             else:
                 probe.eval_forwards += 1
+                visual = kw.get("visual")       # filled: the engine reuses a backbone
+                probe.reused_forwards += bool(visual is not None and visual.feats)
             return forward(model, *args, **kw)
 
         TrainStep.__call__, OCPG.forward, CheckpointManager.save = call, counted, saved
@@ -3691,8 +3701,10 @@ def run_recipe(results, name, trees, work, outputs, smi):
     results["paths"][f"recipe_{name}"] = counts
     nt, ne = probe.train_forwards, probe.eval_forwards
     k7 = K7_PER_FORWARD.get(backbone, 0)
-    want = counts_of(K1=8 * (nt + ne), K2=8 * nt, K7=k7 * (ne + nt * (2 if recompute else 1)))
-    check(counts == want, f"recipe {name}: {nt} train steps and {ne} eval forwards launched "
+    runs = ne - probe.reused_forwards
+    want = counts_of(K1=8 * (nt + ne), K2=8 * nt, K7=k7 * (runs + nt * (2 if recompute else 1)))
+    check(counts == want, f"recipe {name}: {nt} train steps and {ne} eval forwards ({runs} "
+                          f"ran the backbone) launched "
                           f"{counts}, want {want}")
     check(nt == probe.steps, f"recipe {name}: {probe.steps} steps, {nt} train forwards")
     rec = {"module": module, "argv": argv, "s": secs, "peak_gib": peak, "steps": nt,

@@ -228,13 +228,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         for ci, clip_names in enumerate(chunks):
             clip_cache[ci], origin_size = load_frames(
                 img_folder, video, clip_names, args.resize, args.max_size)
+        texts = {}
         for anno_id in range(4):
             for obj_id in range(num_obj):
                 exp = expressions[exp_list[obj_id * 4 + anno_id]]["exp"]
-                ids, attn = tokenizer([" ".join(exp.lower().split())])
-                for ci in range(len(chunks)):
-                    requests.append(InferRequest(clip_cache[ci], ids[0], attn[0]))
-                    meta.append((anno_id, obj_id, ci))
+                texts[anno_id, obj_id] = tokenizer([" ".join(exp.lower().split())])
+        # chunk by chunk, so the engine runs each chunk's backbone once
+        for ci in range(len(chunks)):
+            for (anno_id, obj_id), (ids, attn) in texts.items():
+                requests.append(InferRequest(clip_cache[ci], ids[0], attn[0]))
+                meta.append((anno_id, obj_id, ci))
         results = engine.run(requests)
         if engine.mesh.rank != 0:           # rank 0 writes
             continue

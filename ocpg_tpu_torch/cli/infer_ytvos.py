@@ -119,9 +119,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, int]:
                 img_folder, video, clip_names, args.resize, args.max_size)
 
         requests, meta = [], []
-        for exp_id, ed in vdata["expressions"].items():
-            ids, attn = tokenizer([" ".join(ed["exp"].lower().split())])
-            for ci in range(len(chunks)):
+        texts = {exp_id: tokenizer([" ".join(ed["exp"].lower().split())])
+                 for exp_id, ed in vdata["expressions"].items()}
+        # chunk by chunk, so the engine runs each chunk's backbone once
+        for ci in range(len(chunks)):
+            for exp_id, (ids, attn) in texts.items():
                 requests.append(InferRequest(clip_cache[ci], ids[0], attn[0]))
                 meta.append((exp_id, ci))
         results = engine.run(requests)

@@ -16,12 +16,24 @@ group's outputs are copied back to pinned host memory behind its forward,
 and the host waits for group i-1's copy only after it has dispatched
 group i, so assembling and uploading a group overlaps the device's work.
 
+Within one ``run()`` a group whose rows (this rank's, padding rows as
+None) carry the very ``frames`` objects of the previous group's, on the
+same canvas, reuses that group's device canvas, its mask and the model's
+backbone results (``models/ocpg.py::VisualFeatures``): it assembles and
+uploads only the text, sizes and query overrides, and the model skips its
+backbone.  The expressions of one video, sent as requests on one frames
+array, so run the backbone once.  Nothing is kept past ``run()``, so a
+caller that refills one array between calls is never served stale
+features, and the outputs are those of running every group in full.
+
 Under a profiler, ``run()`` marks its spans (``utils/profiling.py``):
 ``ocpg.engine.run``, and per group ``ocpg.engine.dispatch`` (with
 ``ocpg.engine.assemble`` and ``ocpg.engine.upload`` inside) and
 ``ocpg.engine.drain`` (with ``ocpg.engine.wait`` inside).  Every dispatch
 adds its requests' frames x rows x columns to ``pixels_real`` and its
-canvas, slots x ``clip_len`` x the bucket, to ``pixels_dispatched``.
+canvas, slots x ``clip_len`` x the bucket, to ``pixels_dispatched``, and
+one to ``backbone_runs`` or, where it reused the previous group's
+backbone results, to ``backbone_reused``.
 
 Usage:
     engine = ClipInferenceEngine(model, clip_len=36)
@@ -41,6 +53,7 @@ import torch
 
 from ..data.loader import normalize_frames
 from ..models.build import resolve_device
+from ..models.ocpg import VisualFeatures
 from ..parallel.mesh import gather_rows
 from ..utils.profiling import span
 
@@ -52,6 +65,10 @@ DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = ((384, 640), (512, 640), (640, 51
 # reset): of the requests dispatched, and of the canvases they ran on
 pixels_real = 0
 pixels_dispatched = 0
+# dispatches since the last reset that ran the backbone, and that reused
+# the previous group's backbone results
+backbone_runs = 0
+backbone_reused = 0
 
 
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -89,6 +106,21 @@ def pick_bucket(h: int, w: int,
     if fitting:
         return min(fitting, key=lambda b: b[0] * b[1])
     return (-(-h // 64) * 64, -(-w // 64) * 64)
+
+
+@dataclasses.dataclass
+class _Clips:
+    """A dispatched group's visual side: its canvas, this rank's frames
+    arrays (None for a padding row), their device canvas and mask, and the
+    model's backbone results on them."""
+    bucket: Tuple[int, int]
+    frames: List[Optional[np.ndarray]]
+    x: torch.Tensor
+    m: torch.Tensor
+    visual: VisualFeatures
+
+    def holds(self, bucket, frames) -> bool:
+        return self.bucket == bucket and all(a is b for a, b in zip(self.frames, frames))
 
 
 class ClipInferenceEngine:
@@ -132,16 +164,27 @@ class ClipInferenceEngine:
         self._canvases: set = set()
         self.n_batches = 0
 
-    def _dispatch(self, requests, bucket, group):
+    def _dispatch(self, requests, bucket, group, last: Optional[_Clips]):
         """Assemble, upload and enqueue this rank's rows of one group's
-        forward, the gather of the group's outputs and their readback."""
-        global pixels_real, pixels_dispatched
+        forward, the gather of the group's outputs and their readback.
+        ``last`` is the previous group's visual side, reused where this
+        group's rows carry the same frames; returns this group's beside."""
+        global pixels_real, pixels_dispatched, backbone_runs, backbone_reused
         bh, bw = bucket
         n = self.local_slots
         lo = (self.mesh.rank if self.mesh is not None else 0) * n
+        rows = [requests[ridx] for ridx in group[lo:lo + n]]
+        frames = [r.frames for r in rows] + [None] * (n - len(rows))
+        reuse = last is not None and last.holds(bucket, frames)
         with span("ocpg.engine.assemble"):
-            samples = np.zeros((n, self.clip_len, bh, bw, 3), requests[group[0]].frames.dtype)
-            mask = np.ones((n, self.clip_len, bh, bw), bool)
+            if not reuse:
+                samples = np.zeros((n, self.clip_len, bh, bw, 3),
+                                   requests[group[0]].frames.dtype)
+                mask = np.ones((n, self.clip_len, bh, bw), bool)
+                for j, r in enumerate(rows):
+                    t, h, w = r.frames.shape[:3]
+                    samples[j, :t, :h, :w] = r.frames
+                    mask[j, :t, :h, :w] = False
             lt = requests[group[0]].text_ids.shape[-1]
             ids = np.full((n, lt), 1, np.int32)
             ids[:, 0] = 0
@@ -149,23 +192,26 @@ class ClipInferenceEngine:
             attn[:, 0] = 1
             sizes = np.ones((n, 2), np.int32)
             qov = np.full((n,), -1, np.int32)
-            for j, ridx in enumerate(group[lo:lo + n]):
-                r = requests[ridx]
-                t, h, w = r.frames.shape[:3]
-                samples[j, :t, :h, :w] = r.frames
-                mask[j, :t, :h, :w] = False
+            for j, r in enumerate(rows):
                 ids[j] = r.text_ids
                 attn[j] = r.text_mask
-                sizes[j] = (h, w)
+                sizes[j] = r.frames.shape[1:3]
                 qov[j] = r.query_override
         pixels_real += sum(math.prod(requests[ridx].frames.shape[:3]) for ridx in group)
         pixels_dispatched += self.slots * self.clip_len * bh * bw
         dev = self.device
         with span("ocpg.engine.upload"):
-            m = upload(mask, dev)
-            x = normalize_frames(upload(samples, dev), m)
+            if reuse:
+                clips = last
+                backbone_reused += 1
+            else:
+                m = upload(mask, dev)
+                clips = _Clips(bucket, frames, normalize_frames(upload(samples, dev), m), m,
+                               VisualFeatures())
+                backbone_runs += 1
             ids_d, attn_d, sizes_d, qov_d = (upload(a, dev) for a in (ids, attn, sizes, qov))
-        out = self.model(x, m, ids_d, attn_d, sizes_d, query_override=qov_d)
+        out = self.model(clips.x, clips.m, ids_d, attn_d, sizes_d, query_override=qov_d,
+                         visual=clips.visual)
         def gathered(t):
             return readback(t if self.mesh is None else gather_rows(self.mesh, t))
 
@@ -179,12 +225,14 @@ class ClipInferenceEngine:
             event = torch.cuda.Event()
             event.record()
         self.n_batches += 1
-        return ret, event
+        return ret, event, clips
 
     def run(self, requests: Sequence[InferRequest],
             progress: Optional[Callable[[int], None]] = None) -> List[np.ndarray]:
         """Per request, the (t, h, w) best-query mask logits (float32),
-        cropped to the request's frame count and size."""
+        cropped to the request's frame count and size.  Consecutive groups
+        on the same canvas whose rows carry the same ``frames`` objects run
+        the backbone once (module docstring); the outputs are the same."""
         if not requests:
             return []
         with span("ocpg.engine.run"):
@@ -249,12 +297,14 @@ class ClipInferenceEngine:
                     progress(len(group))
 
         inflight = collections.deque()
+        last = None
         for bucket, group in groups:
             self._canvases.add(bucket)
             for ridx in group:
                 self.last_canvas[ridx] = bucket
             with span("ocpg.engine.dispatch"):
-                inflight.append((group, *self._dispatch(requests, bucket, group)))
+                ret, event, last = self._dispatch(requests, bucket, group, last)
+                inflight.append((group, ret, event))
             if len(inflight) >= self.pipeline_depth:
                 drain(*inflight.popleft())
         while inflight:

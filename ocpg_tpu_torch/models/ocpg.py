@@ -30,11 +30,19 @@ stages (``utils/profiling.py``): ``ocpg.backbone`` (with the level masks
 and positions), ``ocpg.text`` (the encoder, its projections and
 positions), ``ocpg.fusion`` (the level loop), ``ocpg.transformer`` and
 ``ocpg.heads`` (everything after it; in training ``ocpg.matcher`` inside).
+
+The backbone's results depend on ``samples`` and ``samples_mask`` alone
+(``encode_frames``).  An eval caller that sends the same frames again, as
+the inference engine does for the expressions of one video, passes a
+``VisualFeatures`` holder as ``visual``: an empty one is filled inside the
+``ocpg.backbone`` span, and a filled one is read there in place of running
+the backbone, which changes no output.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -64,6 +72,11 @@ def _gather_query(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 2, idx)
 
 
+def _mask_at(frames_mask: torch.Tensor, size) -> torch.Tensor:
+    """The frames' padding mask (N, H, W) at a feature level's size."""
+    return nearest_resize(frames_mask[:, None].float(), size)[:, 0] > 0.5
+
+
 def build_backbone(cfg: OCPGConfig) -> nn.Module:
     if cfg.backbone in ("resnet50", "resnet101"):
         return build_resnet(cfg.backbone, cfg.dilation)
@@ -72,6 +85,21 @@ def build_backbone(cfg: OCPGConfig) -> nn.Module:
     if cfg.backbone.startswith("swin"):
         return build_swin_2d(cfg.backbone, use_checkpoint=cfg.use_checkpoint)
     raise NotImplementedError(cfg.backbone)
+
+
+@dataclasses.dataclass
+class VisualFeatures:
+    """What the visual backbone makes of a batch of clips (``encode_frames``):
+    its feature levels, each level's padding mask and sine positions, the
+    frames and their mask as the forward goes on with them (one per clip
+    with ``valid_indices``), and ``t`` such frames per clip.  Empty until a
+    forward fills it."""
+    feats: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    masks: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    pos: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    frames: Optional[torch.Tensor] = None
+    frames_mask: Optional[torch.Tensor] = None
+    t: int = 0
 
 
 class OCPG(nn.Module):
@@ -127,49 +155,69 @@ class OCPG(nn.Module):
                 sizes: torch.Tensor, valid_indices: Optional[torch.Tensor] = None,
                 *, targets: Optional[Dict[str, torch.Tensor]] = None,
                 query_override: Optional[torch.Tensor] = None,
-                train: bool = False) -> Dict[str, torch.Tensor]:
+                train: bool = False,
+                visual: Optional[VisualFeatures] = None) -> Dict[str, torch.Tensor]:
+        """The forward of one batch of clips.  ``visual``, eval only: an empty
+        ``VisualFeatures`` is filled with this batch's backbone results; a
+        filled one, from a forward on the same ``samples``, ``samples_mask``
+        and ``valid_indices``, is read instead of running the backbone, and
+        every output is what running it would give."""
         if train and targets is None:
             raise ValueError("the train forward needs targets")
+        if train and visual is not None:
+            raise ValueError("the train forward runs its own backbone")
         with span("ocpg.forward"), \
                 torch.autocast(device_type=samples.device.type, dtype=torch.bfloat16,
                                enabled=self.compute_dtype == torch.bfloat16), \
                 torch.set_grad_enabled(train and torch.is_grad_enabled()):
             return self._forward(samples, samples_mask, text_ids, text_attn_mask,
                                  sizes, valid_indices, query_override,
-                                 targets if train else None)
+                                 targets if train else None, visual)
+
+    def encode_frames(self, samples: torch.Tensor, samples_mask: torch.Tensor,
+                      valid_indices: Optional[torch.Tensor] = None,
+                      out: Optional[VisualFeatures] = None) -> VisualFeatures:
+        """The visual backbone over the clips' frames (frames in the batch
+        dim), then its level masks and positions, into ``out`` (a new holder
+        if None).  With ``valid_indices`` (A2D / JHMDB) only the one annotated
+        frame per clip is kept after the backbone."""
+        out = VisualFeatures() if out is None else out
+        b, t_in, H, W, _ = samples.shape
+        frames = samples.reshape(b * t_in, H, W, 3).permute(0, 3, 1, 2)
+        frames_mask = samples_mask.reshape(b * t_in, H, W)
+        if self.cfg.backbone.startswith("resnet"):
+            feats = list(self.backbone(frames))
+        else:   # Swin: the video variant attends across the clip's t_in frames
+            feats = list(self.backbone(frames, num_frames=t_in))
+        if valid_indices is not None:        # A2D / JHMDB: one annotated frame
+            sel = torch.arange(b, device=samples.device) * t_in + valid_indices.long()
+            feats = [f[sel] for f in feats]
+            frames = frames[sel]
+            frames_mask = frames_mask[sel]
+            out.t = 1
+        else:
+            out.t = t_in
+        out.feats, out.frames, out.frames_mask = feats, frames, frames_mask
+        out.masks = [_mask_at(frames_mask, tuple(f.shape[-2:])) for f in feats]
+        out.pos = [position_embedding_sine_2d(m, num_pos_feats=self.cfg.hidden_dim // 2)
+                   for m in out.masks]
+        return out
 
     def _forward(self, samples, samples_mask, text_ids, text_attn_mask, sizes,
-                 valid_indices, query_override, targets):
+                 valid_indices, query_override, targets, visual):
         cfg = self.cfg
-        b, t_in, H, W, _ = samples.shape
+        b, _, H, W, _ = samples.shape
         hidden = cfg.hidden_dim
         nq = cfg.num_queries
         dev = samples.device
 
         # ---------------- visual backbone (frames in the batch dim) ----------
         with span("ocpg.backbone"):
-            frames = samples.reshape(b * t_in, H, W, 3).permute(0, 3, 1, 2)
-            frames_mask = samples_mask.reshape(b * t_in, H, W)
-            if self.cfg.backbone.startswith("resnet"):
-                feats = list(self.backbone(frames))
-            else:   # Swin: the video variant attends across the clip's t_in frames
-                feats = list(self.backbone(frames, num_frames=t_in))
-            if valid_indices is not None:        # A2D / JHMDB: one annotated frame
-                sel = torch.arange(b, device=dev) * t_in + valid_indices.long()
-                feats = [f[sel] for f in feats]
-                frames = frames[sel]
-                frames_mask = frames_mask[sel]
-                t = 1
-            else:
-                t = t_in
+            if visual is None or not visual.feats:
+                visual = self.encode_frames(samples, samples_mask, valid_indices, visual)
+            feats, feat_masks, visual_pos = visual.feats, visual.masks, visual.pos
+            frames, frames_mask, t = visual.frames, visual.frames_mask, visual.t
             bt = b * t
-
-            def mask_at(size):
-                return nearest_resize(frames_mask[:, None].float(), size)[:, 0] > 0.5
-
-            feat_masks = [mask_at(tuple(f.shape[-2:])) for f in feats]
-            visual_pos = [position_embedding_sine_2d(m, num_pos_feats=hidden // 2)
-                          for m in feat_masks]
 
         # ---------------- text encoder (no gradient when frozen) ------------
         with span("ocpg.text"):
@@ -193,7 +241,7 @@ class OCPG(nn.Module):
                 else:
                     base = feats[-1] if l == NUM_BACKBONE_LEVELS else srcs[-1]
                     src = getattr(self, f"input_proj_{l}")(base)
-                    lvl_mask = mask_at(tuple(src.shape[-2:]))
+                    lvl_mask = _mask_at(frames_mask, tuple(src.shape[-2:]))
                     pos_l = position_embedding_sine_2d(lvl_mask, num_pos_feats=hidden // 2)
                 src = getattr(self, f"input_proj_gn_{l}")(src)
                 n_, c_, h_, w_ = src.shape

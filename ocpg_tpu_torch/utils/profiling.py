@@ -53,7 +53,8 @@ The measurement helpers of ``chip_smoke.py`` and the bench drivers
 The counters, module-level integers where the work happens (set them to 0
 to reset), listed by ``LAUNCH_COUNTERS`` (the launches of the port's
 kernels K1-K7; ``reset_launch_counts``, ``launch_counts``) and
-``ENGINE_COUNTERS`` (the engine's real and dispatched pixels).
+``ENGINE_COUNTERS`` (the engine's real and dispatched pixels, and its
+dispatches that ran the backbone or reused the previous group's).
 """
 
 from __future__ import annotations
@@ -292,10 +293,13 @@ LAUNCH_COUNTERS = (("K1", "ocpg_tpu_torch.ops.ms_deform_attn", "launches"),
                    ("K6", "ocpg_tpu_torch.ops.ms_deform_attn_variants", "fk_launches"),
                    ("K7", "ocpg_tpu_torch.ops.window_attention", "launches"))
 
-# the engine's pixel counters: frames x rows x columns of the requests it
-# dispatched, and of the canvases it ran them on (slots x clip_len x bucket)
+# the engine's counters: frames x rows x columns of the requests it
+# dispatched, and of the canvases it ran them on (slots x clip_len x bucket);
+# its dispatches that ran the backbone, and that reused the previous group's
 ENGINE_COUNTERS = (("pixels_real", "ocpg_tpu_torch.engine.infer", "pixels_real"),
-                   ("pixels_dispatched", "ocpg_tpu_torch.engine.infer", "pixels_dispatched"))
+                   ("pixels_dispatched", "ocpg_tpu_torch.engine.infer", "pixels_dispatched"),
+                   ("backbone_runs", "ocpg_tpu_torch.engine.infer", "backbone_runs"),
+                   ("backbone_reused", "ocpg_tpu_torch.engine.infer", "backbone_reused"))
 
 
 def reset_counts(table) -> None:

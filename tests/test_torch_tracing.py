@@ -3,8 +3,9 @@
 With no profiler active ``span()`` is one shared no-op and the kept
 record moves only for kept spans.  Under ``torch.profiler`` one
 ``TrainStep`` call and one engine ``run()`` of two requests export every
-span of their tables in the Chrome trace, each inside its parent; the
-engine's pixel counters equal the sums reckoned by hand; one
+span of their tables in the Chrome trace, each inside its parent, also
+where the engine reuses a video's backbone results; the engine's
+counters equal the sums reckoned by hand; one
 ``build_model`` keeps one ``ocpg.init`` entry.  The model is the tiny
 float32 ResNet configuration of tests/test_torch_model.py.
 """
@@ -129,4 +130,21 @@ def test_engine_spans_and_pixel_counters(built, tmp_path):
     assert "ocpg.matcher" not in spans
     assert profiling.read_counts(profiling.ENGINE_COUNTERS) == {
         "pixels_real": 2 * 48 * 64 + 3 * 64 * 96,
-        "pixels_dispatched": 3 * 64 * 64 + 3 * 64 * 128}
+        "pixels_dispatched": 3 * 64 * 64 + 3 * 64 * 128,
+        "backbone_runs": 2, "backbone_reused": 0}
+
+
+def test_engine_spans_when_a_video_reuses_its_backbone(built, tmp_path):
+    """Three expressions of one video: the two that reuse the first's
+    backbone results still open every stage span inside their forward."""
+    model = built[0].eval()
+    engine = ClipInferenceEngine(model, clip_len=2, buckets=((64, 64),), device="cpu")
+    frames = np.random.default_rng(2).integers(0, 256, (2, 48, 64, 3), dtype=np.uint8)
+    reqs = [InferRequest(frames, np.arange(8, dtype=np.int32) + i, np.ones(8, np.int32))
+            for i in range(3)]
+    profiling.reset_counts(profiling.ENGINE_COUNTERS)
+    spans = traced_spans(lambda: engine.run(reqs), tmp_path)
+    assert_nested(spans, ENGINE_SPANS)
+    assert all(len(spans[s]) == 3 for s in ("ocpg.forward", "ocpg.engine.assemble") + STAGES)
+    counts = profiling.read_counts(profiling.ENGINE_COUNTERS)
+    assert (counts["backbone_runs"], counts["backbone_reused"]) == (1, 2)
