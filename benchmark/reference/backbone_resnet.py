@@ -5,7 +5,7 @@ Blocks are named ``layer{stage}_{block}`` as in the JAX tree."""
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -58,7 +58,9 @@ class ResNet(nn.Module):
                                    downsample=(b == 0)))
                 cin = planes * 4
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor,
+                num_frames: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+        """Frames are independent: ``num_frames`` is not read."""
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
@@ -69,6 +71,15 @@ class ResNet(nn.Module):
         return tuple(outs)
 
 
+_LAYERS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+
+
 def build_resnet(arch: str, dilation: bool) -> ResNet:
-    layers = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}[arch]
-    return ResNet(layers, dilation)
+    return ResNet(_LAYERS[arch], dilation)
+
+
+def _from_config(cfg) -> ResNet:
+    return build_resnet(cfg.backbone, cfg.dilation)
+
+
+BACKBONES = dict.fromkeys(_LAYERS, _from_config)

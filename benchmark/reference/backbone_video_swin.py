@@ -268,3 +268,10 @@ _CONFIGS = {
 
 def build_video_swin(arch: str, use_checkpoint: bool = False) -> VideoSwin:
     return VideoSwin(use_checkpoint=use_checkpoint, **_CONFIGS[arch])
+
+
+def _from_config(cfg) -> VideoSwin:
+    return build_video_swin(cfg.backbone, use_checkpoint=cfg.use_checkpoint)
+
+
+BACKBONES = dict.fromkeys(_CONFIGS, _from_config)

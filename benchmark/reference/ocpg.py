@@ -28,15 +28,15 @@ features stay float32.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import importlib
+import os
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from .config import OCPGConfig
 from .image import bicubic_resize, bilinear_resize, nearest_resize, pixel_shuffle
-from .backbone_resnet import build_resnet
-from .backbone_video_swin import build_video_swin
 from .cross_modal import LFM, VisionLanguageFusion
 from .deformable_transformer import DeformableTransformer
 from .layers import MLP, FeatureResizer, float32_island, inverse_sigmoid
@@ -56,12 +56,31 @@ def _gather_query(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 2, idx)
 
 
+def backbone_table() -> Dict[str, Callable[[OCPGConfig], nn.Module]]:
+    """Every backbone the reference builds, by name: the ``BACKBONES`` of each
+    ``backbone_*.py`` module beside this one, so a backbone is added as a new
+    module and no file here is edited.  Each entry takes the configuration
+    and returns a module that maps ``(frames (N, 3, H, W), num_frames)`` to
+    its four levels, strides 4 to 32, NCHW."""
+    found: Dict[str, Callable[[OCPGConfig], nn.Module]] = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for fname in sorted(os.listdir(here)):
+        if not (fname.startswith("backbone_") and fname.endswith(".py")):
+            continue
+        mod = importlib.import_module(f"{__package__}.{fname[:-3]}")
+        for name, build in mod.BACKBONES.items():
+            if name in found:
+                raise ValueError(f"backbone {name!r} is built by two modules")
+            found[name] = build
+    return found
+
+
 def build_backbone(cfg: OCPGConfig) -> nn.Module:
-    if cfg.backbone in ("resnet50", "resnet101"):
-        return build_resnet(cfg.backbone, cfg.dilation)
-    if cfg.backbone.startswith("video_swin"):
-        return build_video_swin(cfg.backbone, use_checkpoint=cfg.use_checkpoint)
-    raise NotImplementedError(cfg.backbone)
+    table = backbone_table()
+    if cfg.backbone not in table:
+        raise NotImplementedError(f"no reference backbone {cfg.backbone!r}; "
+                                  f"on offer: {', '.join(sorted(table))}")
+    return table[cfg.backbone](cfg)
 
 
 class OCPG(nn.Module):
@@ -138,10 +157,9 @@ class OCPG(nn.Module):
         # ---------------- visual backbone (frames in the batch dim) ----------
         frames = samples.reshape(b * t_in, H, W, 3).permute(0, 3, 1, 2)
         frames_mask = samples_mask.reshape(b * t_in, H, W)
-        if self.cfg.backbone.startswith("resnet"):
-            feats = list(self.backbone(frames))
-        else:   # Swin: the video variant attends across the clip's t_in frames
-            feats = list(self.backbone(frames, num_frames=t_in))
+        # the Video Swin attends across the clip's t_in frames; the ResNet and
+        # the 2D Swin (its num_frames fixed at 1) take each frame alone
+        feats = list(self.backbone(frames, num_frames=t_in))
         if valid_indices is not None:        # A2D / JHMDB: one annotated frame
             sel = torch.arange(b, device=dev) * t_in + valid_indices.long()
             feats = [f[sel] for f in feats]

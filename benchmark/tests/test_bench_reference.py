@@ -18,7 +18,7 @@ def drive(workload, seed=2**31 + 17, seconds=0.2, trace=0):
     return run.run_cell(args, device="cpu", root=DATA, base=DATA, t0=time.perf_counter())
 
 
-@pytest.mark.parametrize("workload", ["f32_train", "f32_swin_train"])
+@pytest.mark.parametrize("workload", ["f32_train", "f32_swin_train", "f32_swin2d_train"])
 def test_reference_train_step_is_the_programs(workload):
     """The program in float32 on the CPU, on the same weights, batches and
     dropout draws, takes the reference's three steps (run in blocks of rows)
@@ -47,7 +47,7 @@ def test_reference_gradients_are_the_programs(workload):
     assert look["grad_gap_worst"] < 1e-3 and look["total_loss_gap"] < 1e-5, look
 
 
-@pytest.mark.parametrize("workload", ["f32_infer", "f32_swin_infer"])
+@pytest.mark.parametrize("workload", ["f32_infer", "f32_swin_infer", "f32_swin2d_infer"])
 def test_reference_serving_is_the_programs(workload):
     out = drive(workload)
     vals = {k: v["value"] for k, v in out["checks"].items()}
@@ -82,8 +82,17 @@ def _loaded_after(code):
 
 
 def test_the_reference_loads_nothing_of_the_program_or_jax():
-    loaded = _loaded_after("import benchmark.reference.step, benchmark.reference.lowp, "
-                           "benchmark.weights, benchmark.check, benchmark.counts")
+    """Also once every backbone module the lookup finds is loaded and each of
+    its backbones built."""
+    loaded = _loaded_after("import torch, benchmark.reference.step, benchmark.reference.lowp, "
+                           "benchmark.weights, benchmark.check, benchmark.counts\n"
+                           "from benchmark.reference.config import OCPGConfig\n"
+                           "from benchmark.reference.ocpg import backbone_table\n"
+                           "table = backbone_table()\n"
+                           "assert 'swin_l_p4w7' in table\n"
+                           "with torch.device('meta'):\n"
+                           "    for name, build in table.items():\n"
+                           "        build(OCPGConfig(backbone=name))")
     assert not loaded & {*FORBIDDEN, "ocpg_tpu_torch"}, loaded
 
 
