@@ -30,6 +30,8 @@ stages (``utils/profiling.py``): ``ocpg.backbone`` (with the level masks
 and positions), ``ocpg.text`` (the encoder, its projections and
 positions), ``ocpg.fusion`` (the level loop), ``ocpg.transformer`` and
 ``ocpg.heads`` (everything after it; in training ``ocpg.matcher`` inside).
+A train forward also marks ``ocpg.grad.backbone``, which holds the
+backbone's backward on the thread that runs it.
 
 The backbone's results depend on ``samples`` and ``samples_mask`` alone
 (``encode_frames``).  An eval caller that sends the same frames again, as
@@ -49,7 +51,7 @@ import torch.nn as nn
 
 from ..config import OCPGConfig
 from ..ops.image import bicubic_resize, bilinear_resize, nearest_resize, pixel_shuffle
-from ..utils.profiling import span
+from ..utils.profiling import backward_span, span
 from .backbone_resnet import build_resnet
 from .backbone_swin2d import build_swin_2d
 from .backbone_video_swin import build_video_swin
@@ -185,10 +187,13 @@ class OCPG(nn.Module):
         b, t_in, H, W, _ = samples.shape
         frames = samples.reshape(b * t_in, H, W, 3).permute(0, 3, 1, 2)
         frames_mask = samples_mask.reshape(b * t_in, H, W)
+        grad_span = backward_span("ocpg.grad.backbone", frames.device)
         if self.cfg.backbone.startswith("resnet"):
             feats = list(self.backbone(frames))
         else:   # Swin: the video variant attends across the clip's t_in frames
             feats = list(self.backbone(frames, num_frames=t_in))
+        if grad_span is not None:
+            feats = grad_span.enclose(feats)
         if valid_indices is not None:        # A2D / JHMDB: one annotated frame
             sel = torch.arange(b, device=samples.device) * t_in + valid_indices.long()
             feats = [f[sel] for f in feats]

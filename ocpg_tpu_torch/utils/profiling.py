@@ -11,6 +11,16 @@ is on exactly while a profiler is, as under ``trace(logdir)`` below.
 (always, profiler or not) for set-up phases that run before any profiler;
 ``kept_seconds(name)`` sums them.
 
+``backward_span(name, device)`` is the span of a piece of the forward's
+backward: made before the piece runs and handed the piece's outputs
+(``enclose``), it puts two identity nodes into the autograd graph, one
+after the piece that opens a ``record_function`` range when autograd
+reaches it and one before the piece that closes it.  Autograd runs the
+ready node made last first, so the range holds the backward of every
+operation of the piece and of nothing made after it.  Like ``span()`` it
+exists only while a profiler is active (and the forward records a graph):
+otherwise it is None and the graph gains no node.
+
 The spans, all named ``ocpg.*`` (no name holds another stage's name, so a
 reader may match the stages by substring):
 
@@ -20,7 +30,9 @@ reader may match the stages by substring):
   ``ocpg.optim.step``;
 * ``models/ocpg.py``: ``ocpg.forward``, inside it ``ocpg.backbone``,
   ``ocpg.text``, ``ocpg.fusion``, ``ocpg.transformer`` and ``ocpg.heads``
-  (``ocpg.matcher`` inside the heads in training);
+  (``ocpg.matcher`` inside the heads in training); in training also
+  ``ocpg.grad.backbone``, the backbone's backward, on the thread that runs
+  autograd's backward (``backward_span``);
 * ``engine/infer.py::ClipInferenceEngine``: ``ocpg.engine.run`` (the
   call), per dispatch group ``ocpg.engine.dispatch`` (inside it
   ``ocpg.engine.assemble`` and ``ocpg.engine.upload``) and
@@ -96,6 +108,74 @@ def kept_seconds(name: str) -> Optional[float]:
     """The summed wall seconds of the kept spans named ``name`` (None if none)."""
     secs = [s for n, s in kept if n == name]
     return sum(secs) if secs else None
+
+
+class _BackwardSpanEnd(torch.autograd.Function):
+    """Identity on an empty anchor, made before the piece: autograd reaches
+    it after the piece's backward, and it closes the range."""
+
+    @staticmethod
+    def forward(ctx, state: List, anchor: torch.Tensor) -> torch.Tensor:
+        ctx.state = state
+        ctx.set_materialize_grads(False)
+        return anchor.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.state:
+            ctx.state.pop().__exit__(None, None, None)
+        return None, None
+
+
+class _BackwardSpanBegin(torch.autograd.Function):
+    """Identity on the piece's outputs: autograd reaches it once their
+    gradients are summed, and it opens the range.  Its gradient to the end
+    node is an empty tensor on the piece's device, so that node runs on the
+    same autograd thread."""
+
+    @staticmethod
+    def forward(ctx, state: List, name: str, end: torch.Tensor, *outs: torch.Tensor):
+        ctx.state, ctx.name, ctx.end = state, name, (end.dtype, end.device)
+        ctx.set_materialize_grads(False)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rf = torch.profiler.record_function(ctx.name)
+        rf.__enter__()
+        ctx.state.append(rf)
+        dtype, device = ctx.end
+        return (None, None, torch.empty(0, dtype=dtype, device=device), *grads)
+
+
+class BackwardSpan:
+    """See ``backward_span``."""
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.state: List = []      # the open range, between the two nodes
+        anchor = torch.empty(0, device=device, requires_grad=True)
+        self.end = _BackwardSpanEnd.apply(self.state, anchor)
+
+    def enclose(self, outs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``outs`` through the opening node (those that take a gradient)."""
+        idx = [i for i, x in enumerate(outs) if x.requires_grad]
+        if not idx:
+            return list(outs)
+        marked = _BackwardSpanBegin.apply(self.state, self.name, self.end,
+                                          *(outs[i] for i in idx))
+        out = list(outs)
+        for i, x in zip(idx, marked):
+            out[i] = x
+        return out
+
+
+def backward_span(name: str, device) -> Optional[BackwardSpan]:
+    """A ``BackwardSpan`` named ``name`` while a profiler is active and the
+    forward records a graph, else None."""
+    if torch._C._autograd._profiler_enabled() and torch.is_grad_enabled():
+        return BackwardSpan(name, device)
+    return None
 
 
 @contextlib.contextmanager

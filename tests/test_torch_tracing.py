@@ -8,7 +8,18 @@ where the engine reuses a video's backbone results; the engine's
 counters equal the sums reckoned by hand; one
 ``build_model`` keeps one ``ocpg.init`` entry.  The model is the tiny
 float32 ResNet configuration of tests/test_torch_model.py.
+
+The backbone's backward span ``ocpg.grad.backbone`` is held on a tiny 2D
+Swin train step whose window attention and MSDA run through the kernels'
+autograd Functions (the plain forwards in place of the launches), so that
+their backward nodes are named in the trace: one range a step, holding
+every window-attention backward and no MSDA backward, and with per-block
+recompute (``use_checkpoint``) every recomputed window-attention forward
+too; no marker node in the graph without a profiler; a traced and an
+untraced step from one state give bit-equal losses and gradients, with
+recompute or without.
 """
+import copy
 import json
 
 import numpy as np
@@ -20,7 +31,9 @@ from ocpg_tpu_torch.data.synthetic import synthetic_batch
 from ocpg_tpu_torch.engine.infer import ClipInferenceEngine, InferRequest
 from ocpg_tpu_torch.engine.optim import build_optimizer
 from ocpg_tpu_torch.engine.train import TrainStep
+from ocpg_tpu_torch.models import backbone_swin2d, backbone_video_swin, deformable_transformer
 from ocpg_tpu_torch.models.build import build_model, build_weight_dict, criterion_config
+from ocpg_tpu_torch.ops import ms_deform_attn, window_attention
 from ocpg_tpu_torch.utils import profiling
 
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -148,3 +161,157 @@ def test_engine_spans_when_a_video_reuses_its_backbone(built, tmp_path):
     assert all(len(spans[s]) == 3 for s in ("ocpg.forward", "ocpg.engine.assemble") + STAGES)
     counts = profiling.read_counts(profiling.ENGINE_COUNTERS)
     assert (counts["backbone_runs"], counts["backbone_reused"]) == (1, 2)
+
+
+# ------------------------------------------------ the backbone's backward --
+SWIN_CFG = dict(CFG, backbone="swin_span_test", dataset_file="ytvos")
+SWIN_SPAN_TEST = dict(embed_dim=32, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8))
+# every span the port records, from utils/profiling.py's docstring
+SPAN_NAMES = ("ocpg.step", "ocpg.step.upload", "ocpg.loss", "ocpg.backward", "ocpg.optim.clip",
+              "ocpg.step.readback", "ocpg.optim.step", "ocpg.forward", "ocpg.backbone",
+              "ocpg.text", "ocpg.fusion", "ocpg.transformer", "ocpg.heads", "ocpg.matcher",
+              "ocpg.grad.backbone", "ocpg.engine.run", "ocpg.engine.dispatch",
+              "ocpg.engine.assemble", "ocpg.engine.upload", "ocpg.engine.drain",
+              "ocpg.engine.wait", "ocpg.init")
+WATTN_FWD = "_WindowAttentionFunction"
+WATTN_BWD, MSDA_BWD = WATTN_FWD + "Backward", "_MSDAFunctionBackward"
+
+
+def _wattn_function(q, k, v, bias, mask=None):
+    return window_attention._WindowAttentionFunction.apply(
+        q, k, v, bias.to(q.dtype).contiguous(),
+        None if mask is None else mask.to(q.dtype).contiguous())
+
+
+def _msda_function(value, spatial_shapes, x_cm, y_cm, aw_cm):
+    return ms_deform_attn._MSDAFunction.apply(value, x_cm, y_cm, aw_cm,
+                                              tuple(map(tuple, spatial_shapes)))
+
+
+@pytest.fixture(params=[False, True], ids=["plain", "recompute"])
+def swin_step_parts(request, monkeypatch):
+    """A tiny 2D Swin model, without and with per-block recompute, whose
+    window attention and MSDA run through the kernels' autograd Functions on
+    the CPU for the one test that asks for it, and a batch."""
+    monkeypatch.setitem(backbone_swin2d._CONFIGS, "swin_span_test", SWIN_SPAN_TEST)
+    monkeypatch.setattr(window_attention, "_launch", window_attention.window_attention_reference)
+    monkeypatch.setattr(ms_deform_attn, "_launch", ms_deform_attn.ms_deform_attn_cm_reference)
+    monkeypatch.setattr(backbone_video_swin, "window_attention", _wattn_function)
+    monkeypatch.setattr(deformable_transformer, "ms_deform_attn_cm", _msda_function)
+    model = build_model(OCPGConfig(**SWIN_CFG, use_checkpoint=request.param), device="cpu")
+    assert model.backbone.use_checkpoint == request.param
+    batch = synthetic_batch(np.random.default_rng(3), batch=1, frames=2, height=64,
+                            width=64, text_len=8, vocab_size=1000)
+    return model, batch
+
+
+def _train_step(model):
+    cfg = model.cfg
+    return TrainStep(model, criterion_config(cfg), build_weight_dict(cfg),
+                     build_optimizer(model, cfg))
+
+
+def traced_events(fn, tmp_path):
+    """Every complete event of ``fn()`` under the profiler: (name, tid, start, end)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [(ev["name"], ev["tid"], ev["ts"], ev["ts"] + ev["dur"])
+            for ev in json.loads(path.read_text())["traceEvents"] if ev.get("ph") == "X"]
+
+
+def test_backbone_backward_span_holds_the_backbone_backward(swin_step_parts, tmp_path):
+    """Two traced steps: one ``ocpg.grad.backbone`` range in each step's
+    backward, on the thread of the backward's nodes, holding every window
+    attention's backward node and no MSDA backward node; with recompute
+    also one window-attention forward a block (the recompute's), without
+    recompute none."""
+    model, batch = swin_step_parts
+    step = _train_step(copy.deepcopy(model))
+    events = traced_events(lambda: [step(batch) for _ in range(2)], tmp_path)
+
+    def named(name):
+        return [e for e in events if e[0] == name]
+
+    ranges, steps = named("ocpg.grad.backbone"), named("ocpg.step")
+    assert len(steps) == 2 and len(ranges) == 2
+    for s in steps:
+        assert sum(s[2] <= r[2] and r[3] <= s[3] for r in ranges) == 1
+
+    def inside(e):
+        return any(r[1] == e[1] and r[2] <= e[2] and e[3] <= r[3] for r in ranges)
+
+    wattn, msda = named(WATTN_BWD), named(MSDA_BWD)
+    assert len(wattn) == 2 * 4 and len(msda) > 0     # 4 blocks a step
+    assert all(inside(e) for e in wattn)
+    assert not any(inside(e) for e in msda)
+    recomputed = sum(inside(e) for e in named(WATTN_FWD))
+    assert recomputed == (2 * 4 if model.backbone.use_checkpoint else 0)
+
+
+def _graph_names(roots):
+    """The names of every node of the autograd graph behind ``roots``."""
+    seen, todo = set(), [r.grad_fn for r in roots if r.grad_fn is not None]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        todo.extend(n for n, _ in node.next_functions)
+    return {type(n).__name__ for n in seen}
+
+
+def test_no_marker_node_without_a_profiler(swin_step_parts):
+    model, batch = swin_step_parts
+    from ocpg_tpu_torch.data.loader import decompress_batch
+
+    def tensors(x):
+        if isinstance(x, dict):
+            return {k: tensors(v) for k, v in x.items()}
+        return torch.as_tensor(np.asarray(x))
+
+    b = decompress_batch(tensors(batch))
+
+    def forward():
+        out = model(b["samples"], b["samples_mask"], b["text_ids"], b["text_mask"],
+                    b["targets"]["size"], targets=b["targets"], train=True)
+        return [v for v in out.values() if isinstance(v, torch.Tensor) and v.requires_grad]
+
+    plain = _graph_names(forward())
+    assert WATTN_BWD in plain and not any("BackwardSpan" in n for n in plain)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        traced = _graph_names(forward())
+    assert {n for n in traced if "BackwardSpan" in n} == {"_BackwardSpanBeginBackward",
+                                                          "_BackwardSpanEndBackward"}
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert profiling.backward_span("ocpg.grad.backbone", "cpu") is None
+
+
+def test_traced_and_untraced_steps_are_bit_equal(swin_step_parts, tmp_path):
+    model, batch = swin_step_parts
+    plain, traced = _train_step(copy.deepcopy(model)), _train_step(copy.deepcopy(model))
+    want = plain(batch)
+    got = {}
+    names = [e[0] for e in traced_events(lambda: got.update(traced(batch)), tmp_path)]
+    assert "ocpg.grad.backbone" in names
+    assert got == want
+    for (n, p), q in zip(plain.model.named_parameters(), traced.model.parameters()):
+        assert (p.grad is None) == (q.grad is None), n
+        assert p.grad is None or torch.equal(p.grad, q.grad), n
+        assert torch.equal(p, q), n
+
+
+def test_span_names_hold_no_other():
+    """A reader may match the spans by substring (``Trace.device_us_under``):
+    no name holds another, but for ``ocpg.step``'s own two parts, which
+    readers match exactly."""
+    assert len(set(SPAN_NAMES)) == len(SPAN_NAMES)
+    for a in SPAN_NAMES:
+        for b in SPAN_NAMES:
+            if a != b and a in b:
+                assert (a, b) in {("ocpg.step", "ocpg.step.upload"),
+                                  ("ocpg.step", "ocpg.step.readback")}, (a, b)
+    for name in SPAN_NAMES:
+        assert name in profiling.__doc__, name
